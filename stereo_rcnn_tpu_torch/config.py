@@ -307,6 +307,21 @@ def load_config(yaml_path: str | None = None,
     return cfg
 
 
+def synthetic_fullres_config() -> Config:
+    """``configs/synthetic_fullres.yml`` over ``Config()``, built without
+    PyYAML: ResNet-101 with GroupNorm-32 and rematerialised bottlenecks, the
+    fused stereo RoIAlign, 1280x384, batch 8 (pinned equal to the YAML by
+    ``tests/test_torch_bridges.py``)."""
+    base = Config()
+    return dataclasses.replace(
+        base,
+        backbone=dataclasses.replace(base.backbone, norm="group", remat=True),
+        rcnn=dataclasses.replace(base.rcnn, roi_align_impl="pallas"),
+        train=dataclasses.replace(base.train, learning_rate=0.002,
+                                  lr_decay_step=48, epochs=64,
+                                  batch_per_device=8))
+
+
 def tiny_test_config() -> Config:
     """A miniature config for fast CPU tests: small images, small backbone
     budgets, tiny static top-Ns.  Keeps every code path identical."""

@@ -4,8 +4,10 @@ The inverse of ``stereo_rcnn_tpu.convert.stereo_import.import_detector``
 on the port's layouts: HWIO conv kernels -> OIHW, Dense kernels
 transposed, fc6 columns from the JAX (h, w, c) flatten back to upstream's
 (c, h, w), the ConvTranspose kernel ``[kh, kw, out, in]`` -> torch's
-``[in, out, kh, kw]``, frozen-BN ``scale``/``bias`` as they are.  Values
-are copied bit for bit; a leaf no rule maps raises.
+``[in, out, kh, kw]``, frozen or affine BN ``scale``/``bias`` as they are,
+a GroupNorm's ``<site>/gn/{scale,bias}`` as ``<site>.gn.{weight,bias}``.
+A training state's tree (``{"model": ..., "uncert": [6]}``) also gives
+``"uncert"``.  Values are copied bit for bit; a leaf no rule maps raises.
 
 Input is the flax tree as numpy arrays
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
@@ -67,6 +69,12 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def _module_rule(path: str):
     """(port prefix, kind) for a flax module path, or None."""
+    site, _, last = path.rpartition("/")
+    if last == "gn":                      # GroupNorm under a norm site
+        rule = _module_rule(site)
+        if rule is None or rule[1] != "bn":
+            return None
+        return f"{rule[0]}.gn", "gn"
     if path in _FIXED:
         return _FIXED[path]
     parts = path.split("/")
@@ -80,8 +88,10 @@ def _module_rule(path: str):
 
 def _convert(kind: str, leaf: str, x: np.ndarray, pool: int,
              channels: int) -> tuple[str, np.ndarray]:
-    if kind == "bn":                      # frozen-BN constants, as they are
+    if kind == "bn":                      # frozen/affine BN, as they are
         return leaf, x
+    if kind == "gn":                      # flax scale -> torch weight
+        return ("weight" if leaf == "scale" else leaf), x
     if leaf == "bias":
         return "bias", x
     if kind in ("conv", "deconv"):
@@ -101,11 +111,18 @@ def _convert(kind: str, leaf: str, x: np.ndarray, pool: int,
 def state_dict_from_jax(params_np: Mapping, cfg: Config
                         ) -> Dict[str, torch.Tensor]:
     """Map every leaf of the flax tree (with or without its top-level
-    ``"params"`` key) to the port's ``state_dict``."""
+    ``"params"`` key, or a training state's ``{"model", "uncert"}``) to
+    the port's ``state_dict``, plus ``"uncert"`` for a training state."""
     tree = params_np["params"] if "params" in params_np else params_np
+    out: Dict[str, torch.Tensor] = {}
+    if "uncert" in tree:
+        out["uncert"] = torch.from_numpy(
+            np.array(tree["uncert"], dtype=np.float32, order="C"))
+        tree = {k: v for k, v in tree.items() if k != "uncert"}
+        if set(tree) == {"model"}:
+            tree = tree["model"]
     pool = cfg.rcnn.pooling_size
     channels = 2 * cfg.backbone.fpn_dim
-    out: Dict[str, torch.Tensor] = {}
     unmapped = []
     for path, x in _flatten(tree).items():
         module, leaf = path.rsplit("/", 1)

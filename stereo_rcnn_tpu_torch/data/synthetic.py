@@ -1,71 +1,27 @@
-"""Synthetic KITTI-like stereo scenes (numpy only).
+"""Synthetic KITTI-like stereo scenes with ground truth (numpy only).
 
-Port of the image half of ``stereo_rcnn_tpu.data.synthetic``, with the
-pieces of ``stereo_rcnn_tpu.data.kitti`` it needs, so the port can render
-its inputs on a host without JAX.  ``random_scene`` and ``render_pair``
-are copies that consume the identical rng stream: the same seed gives
-byte-identical images to ``stereo_rcnn_tpu.data.synthetic.synthetic_batch``
-(pinned by ``tests/test_torch_bridges.py``).  No ground truth is packed.
+Port of ``stereo_rcnn_tpu.data.synthetic``'s renderer and
+``synthetic_batch``, so the port can render its inputs on a host without
+JAX.  ``random_scene`` and ``render_pair`` are copies that consume the
+identical rng stream: the same seed gives byte-identical images and
+ground-truth arrays to ``stereo_rcnn_tpu.data.synthetic.synthetic_batch``
+(pinned by ``tests/test_torch_bridges.py``).
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import List, Tuple
 
 import numpy as np
 
 from stereo_rcnn_tpu_torch.config import Config
+from stereo_rcnn_tpu_torch.data.kitti import (KittiObject, _all_corners_cam,
+                                              _project_np,
+                                              annotations_for_frame,
+                                              pack_ground_truth)
 from stereo_rcnn_tpu_torch.geometry.calib import (StereoCalib,
                                                   default_kitti_calib)
-
-# Object-frame bottom-corner template — MUST match geometry.projection.
-_CX = np.array([0.5, 0.5, -0.5, -0.5])   # x_o in units of l
-_CZ = np.array([0.5, -0.5, -0.5, 0.5])   # z_o in units of w
-
-
-@dataclasses.dataclass
-class KittiObject:
-    type: str
-    truncation: float
-    occlusion: int
-    alpha: float
-    box: np.ndarray          # [4] left-image xyxy
-    dims: np.ndarray         # [3] (h, w, l)
-    location: np.ndarray     # [3] bottom-center (x, y, z)
-    ry: float
-
-
-def _bottom_corners_cam(loc: np.ndarray, dims: np.ndarray,
-                        ry: float) -> np.ndarray:
-    """[4, 3] bottom corners in camera frame (order = projection module)."""
-    h, w, l = dims
-    xo = _CX * l
-    zo = _CZ * w
-    c, s = np.cos(ry), np.sin(ry)
-    x = loc[0] + c * xo + s * zo
-    y = np.full(4, loc[1])
-    z = loc[2] - s * xo + c * zo
-    return np.stack([x, y, z], axis=-1)
-
-
-def _all_corners_cam(loc, dims, ry) -> np.ndarray:
-    bottom = _bottom_corners_cam(loc, dims, ry)
-    top = bottom.copy()
-    top[:, 1] -= dims[0]
-    return np.concatenate([bottom, top], axis=0)          # [8, 3]
-
-
-def _project_np(pts: np.ndarray, calib: StereoCalib,
-                right: bool = False) -> np.ndarray:
-    f = float(calib.f)
-    cu, cv = float(calib.cu), float(calib.cv)
-    off = float(calib.tx2) - (float(calib.baseline) if right else 0.0)
-    z = np.maximum(pts[:, 2], 1e-3)
-    u = cu + f * (pts[:, 0] + off) / z
-    v = cv + f * pts[:, 1] / z
-    return np.stack([u, v], axis=-1)
-
+from stereo_rcnn_tpu_torch.train.targets import GroundTruth
 
 #: Per-class geometry + appearance.  ``dims`` are (h, w, l) uniform ranges
 #: roughly matching the KITTI class statistics (Car mean 1.53/1.63/3.88,
@@ -175,8 +131,7 @@ _SHADE_LIGHT_XZ /= np.linalg.norm(_SHADE_LIGHT_XZ)
 _SHADE_AMBIENT = 0.45
 _SHADE_DIFFUSE = 0.9
 
-#: Renderer appearance modes (DataConfig.synthetic_appearance / the
-#: per-domain overrides in ``synthetic_batch``).
+#: Renderer appearance modes (DataConfig.synthetic_appearance).
 APPEARANCES = ("tints", "shaded", "plain")
 
 
@@ -350,10 +305,12 @@ def render_pair(objs: List[KittiObject], calib: StereoCalib, im_h: int,
     return left, right
 
 
-def synthetic_images(cfg: Config, batch: int, seed: int = 0,
-                     n_objects: int = 4):
-    """Mean-subtracted BGR image pairs ``(left, right)`` [B, H, W, 3]
-    float32 and the working-resolution calibration."""
+def synthetic_batch(cfg: Config, batch: int, seed: int = 0,
+                    n_objects: int = 4):
+    """``(left, right, gt, calib)``: mean-subtracted BGR image pairs
+    [B, H, W, 3] float32, the packed :class:`GroundTruth` with numpy leaves
+    [B, G, ...], and the working-resolution calibration (the JAX package's
+    ``synthetic_batch`` with ``domain="none"``)."""
     calib = default_kitti_calib()
     h, w = cfg.data.image_h, cfg.data.image_w
     # Scale nominal KITTI calib (1242x375) to the working resolution.
@@ -365,11 +322,21 @@ def synthetic_images(cfg: Config, batch: int, seed: int = 0,
     if unknown:
         raise ValueError(f"no synthetic renderer spec for classes "
                          f"{unknown}; known: {sorted(_CLASS_SPECS)}")
-    imgs_l, imgs_r = [], []
+    imgs_l, imgs_r, gts = [], [], []
     for _ in range(batch):
         objs = random_scene(rng, n_objects, calib_s, h, w, class_names)
         il, ir = render_pair(objs, calib_s, h, w, rng,
                              appearance=cfg.data.synthetic_appearance)
+        annos = annotations_for_frame(objs, calib_s, float(w), cfg.data)
+        gts.append(pack_ground_truth(annos, cfg.train.max_gt_boxes))
         imgs_l.append(il - means)
         imgs_r.append(ir - means)
-    return np.stack(imgs_l), np.stack(imgs_r), calib_s
+    gt = GroundTruth(*[np.stack(field) for field in zip(*gts)])
+    return np.stack(imgs_l), np.stack(imgs_r), gt, calib_s
+
+
+def synthetic_images(cfg: Config, batch: int, seed: int = 0,
+                     n_objects: int = 4):
+    """The image pairs and calibration of :func:`synthetic_batch`."""
+    il, ir, _, calib = synthetic_batch(cfg, batch, seed, n_objects)
+    return il, ir, calib

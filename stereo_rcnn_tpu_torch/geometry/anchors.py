@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from stereo_rcnn_tpu_torch.config import AnchorConfig
+from stereo_rcnn_tpu_torch.device import resolve_device
 
 
 def base_anchors(scale: float, ratios: Sequence[float],
@@ -30,8 +31,10 @@ def base_anchors(scale: float, ratios: Sequence[float],
 
 def generate_anchors(cfg: AnchorConfig, image_h: int, image_w: int,
                      off: float = 0.0,
-                     device: torch.device | str = "cpu") -> torch.Tensor:
-    """All anchors over all levels, ``[A_total, 4]`` xyxy float32."""
+                     device: torch.device | str | None = None
+                     ) -> torch.Tensor:
+    """All anchors over all levels, ``[A_total, 4]`` xyxy float32, on
+    ``device`` (default: the CUDA card)."""
     per_level = []
     for stride, scale in zip(cfg.strides, cfg.scales):
         fh, fw = -(-image_h // stride), -(-image_w // stride)
@@ -42,5 +45,5 @@ def generate_anchors(cfg: AnchorConfig, image_h: int, image_w: int,
         shifts = np.stack([cx, cy, cx, cy], axis=-1)               # [fh, fw, 4]
         anchors = shifts[:, :, None, :] + base[None, None, :, :]
         per_level.append(anchors.reshape(-1, 4))
-    return torch.from_numpy(np.concatenate(per_level, axis=0)).to(device)
-
+    return torch.from_numpy(np.concatenate(per_level, axis=0)).to(
+        resolve_device(device))

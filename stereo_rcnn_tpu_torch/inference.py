@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from stereo_rcnn_tpu_torch.config import Config
+from stereo_rcnn_tpu_torch.device import resolve_device
 from stereo_rcnn_tpu_torch.geometry.calib import StereoCalib
 from stereo_rcnn_tpu_torch.models.detector import Detections, make_inference_fn
 from stereo_rcnn_tpu_torch.solve.box_estimator import (
@@ -33,9 +34,10 @@ class Detections3D(NamedTuple):
 
 
 def broadcast_calib(calib: StereoCalib, batch: int,
-                    device: torch.device | str = "cpu") -> StereoCalib:
+                    device: torch.device | str | None = None) -> StereoCalib:
     """Tile a single working-resolution calib to [B]-leading float32
-    tensors on ``device``."""
+    tensors on ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
     return StereoCalib(*[
         torch.from_numpy(np.asarray(v, np.float32)).to(device).expand(
             (batch,) + np.shape(v)).contiguous() for v in calib])

@@ -5,6 +5,9 @@ the left and right images run as one batch, the stereo RPN, the fused
 stereo RoIAlign (``ops.stereo_roi_align``, the CUDA kernel on the card),
 the RCNN head, per-class decode + NMS + top-k, and the keypoint head on
 the NMS survivors only.  Every stage has a fixed output shape.
+``roi_features`` is differentiable: its backward is the CUDA kernel
+``csrc/stereo_roi_align_bwd.cu`` on the card, so training
+(``train.step``) composes the same functions.
 
 :class:`StereoRCNN` holds the weights (upstream ``state_dict`` names); the
 functions below compose it as the JAX package's functions compose its
@@ -21,6 +24,7 @@ import torch
 from torch import nn
 
 from stereo_rcnn_tpu_torch.config import Config
+from stereo_rcnn_tpu_torch.device import resolve_device
 from stereo_rcnn_tpu_torch.geometry.anchors import generate_anchors
 from stereo_rcnn_tpu_torch.geometry.boxes import (clip_boxes,
                                                   decode_stereo_boxes,
@@ -55,18 +59,19 @@ class StereoRCNN(nn.Module):
                 f"rcnn.roi_align_hat={rc.roi_align_hat!r}: the port's kernel "
                 "uses exact f32 sampling weights; kron_bf16 is queued in "
                 "ROADMAP.md (Queue 2, K1)")
-        if cfg.backbone.norm != "frozen":
+        if cfg.backbone.fpn_upsample != "bilinear":
             raise NotImplementedError(
-                f"backbone.norm={cfg.backbone.norm!r}: the port has frozen "
-                "BN only; GroupNorm and affine norms come with training "
-                "(ROADMAP.md)")
+                f"backbone.fpn_upsample={cfg.backbone.fpn_upsample!r}: the "
+                "port's FPN upsamples bilinearly only")
         if rc.kpt_pool_size != 2 * rc.pooling_size:
             raise ValueError("the fused RoIAlign needs kpt_pool_size == "
                              "2 * pooling_size")
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         d = cfg.backbone.fpn_dim
-        self.backbone_net = ResNetFPN(cfg.backbone.depth, d)
+        bb = cfg.backbone
+        self.backbone_net = ResNetFPN(bb.depth, d, bb.norm, bb.frozen_stages,
+                                      bb.remat)
         self.RCNN_rpn = StereoRPNHead(d, cfg.anchors.num_anchors_per_cell,
                                       cfg.rpn.conv_dim)
         self.rcnn_head = RCNNHead(d, rc.pooling_size, rc.num_classes,
@@ -291,12 +296,15 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
 
 
 def init_params(cfg: Config, generator: torch.Generator,
-                device: torch.device | str = "cpu") -> StereoRCNN:
+                device: torch.device | str | None = None) -> StereoRCNN:
     """A randomly initialised model with flax's variances: lecun-normal
     kernels, zero biases, normal(0.01) for the RPN and ``cls_score``,
-    normal(0.001) for ``bbox_pred``, ``dim_orien_pred`` and ``kpt_score``,
-    identity frozen BN.  Draws on the CPU from ``generator``, then moves
-    the model to ``device``."""
+    normal(0.001) for ``bbox_pred``, ``dim_orien_pred`` and ``kpt_score``;
+    norms as flax initialises them (frozen BN identity, affine scale 1 and
+    0 on ``bn3``, GroupNorm scale 1 and bias 0: the modules' own init).
+    Draws on the CPU from ``generator``, then moves the model to
+    ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
     model = build_model(cfg)
     small = {model.RCNN_rpn.RPN_Conv: 0.01,
              model.RCNN_rpn.RPN_cls_score: 0.01,

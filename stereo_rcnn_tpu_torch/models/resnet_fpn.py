@@ -1,15 +1,26 @@
-"""ResNet + FPN backbone with frozen BatchNorm (torch).
+"""ResNet + FPN backbone (torch).
 
-Port of ``stereo_rcnn_tpu.models.resnet_fpn`` for ``norm="frozen"``: caffe
-variant (stride on the first 1x1 conv), frozen BN as a fixed per-channel
-``x * scale + bias`` (the JAX package's folded constants), a stem max-pool
-that pads with -inf, bilinear top-down upsampling with
-``align_corners=False``, and P6 = P5 subsampled by 2.
+Port of ``stereo_rcnn_tpu.models.resnet_fpn``: caffe variant (stride on
+the first 1x1 conv), a stem max-pool that pads with -inf, bilinear
+top-down upsampling with ``align_corners=False``, and P6 = P5 subsampled
+by 2.  Three norms, as in the JAX package:
+
+* ``"frozen"``: BN folded into a fixed per-channel ``x * scale + bias``
+  (buffers); the stem and the first ``frozen_stages`` stages get no
+  gradient (the reference's FIXED_BLOCKS);
+* ``"affine"``: the same module with ``scale``/``bias`` as parameters,
+  ``bn3``'s scale zero-initialised (zero-gamma residual branches);
+* ``"group"``: GroupNorm with ``min(32, C)`` groups, flax's epsilon 1e-6
+  and its statistics in float32.
+
+``remat`` recomputes each bottleneck in the backward pass
+(``torch.utils.checkpoint``), as ``nn.remat`` does in the JAX package.
 
 Parameter names are the upstream Stereo R-CNN ``state_dict`` names
 (``RCNN_layer0`` .. ``RCNN_layer4``, ``RCNN_toplayer``, ``RCNN_latlayer*``,
-``RCNN_smooth*``); a frozen BN holds ``scale`` and ``bias`` buffers in
-place of BatchNorm2d's four.
+``RCNN_smooth*``); a frozen or affine BN holds ``scale`` and ``bias`` in
+place of BatchNorm2d's four, and a GroupNorm site holds its affine under
+``gn`` (``bn1.gn.weight``), as the flax tree holds ``bn1/gn/scale``.
 
 Weights stay float32; convolutions run in the dtype of their input
 (``compute_dtype``).  The backbone takes NHWC images and runs in
@@ -23,6 +34,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 STAGE_BLOCKS = {10: (1, 1, 1, 1), 26: (2, 2, 2, 2), 50: (3, 4, 6, 3),
@@ -38,12 +50,21 @@ class Conv2d(nn.Conv2d):
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm folded into fixed ``scale``/``bias`` (identity at init)."""
+    """BatchNorm folded into a per-channel ``scale``/``bias``: fixed
+    buffers (identity at init), or parameters when ``trainable`` (the
+    "affine" norm; ``zero_init`` starts the scale at 0)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, trainable: bool = False,
+                 zero_init: bool = False):
         super().__init__()
-        self.register_buffer("scale", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        scale = (torch.zeros if zero_init else torch.ones)(features)
+        bias = torch.zeros(features)
+        if trainable:
+            self.scale = nn.Parameter(scale)
+            self.bias = nn.Parameter(bias)
+        else:
+            self.register_buffer("scale", scale)
+            self.register_buffer("bias", bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1)
@@ -51,22 +72,58 @@ class FrozenBatchNorm(nn.Module):
                 self.bias.to(x.dtype).view(shape))
 
 
+class GroupNorm32(nn.Module):
+    """flax ``nn.GroupNorm(num_groups=min(32, C))``: float32 statistics
+    with flax's one-pass variance ``E[x^2] - E[x]^2`` (clamped at 0),
+    epsilon 1e-6, the result cast back to the input's dtype.  Works on the
+    NHWC view of a channels-last input, so nothing is transposed."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.gn = nn.GroupNorm(min(32, features), features, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        g = self.gn.num_groups
+        xf = x.permute(0, 2, 3, 1).float().reshape(n, h * w, g, c // g)
+        mean = xf.mean(dim=(1, 3), keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=(1, 3), keepdim=True) -
+                          mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.gn.eps) * self.gn.weight.view(
+            1, 1, g, c // g)
+        y = (xf - mean) * mul + self.gn.bias.view(1, 1, g, c // g)
+        return y.reshape(n, h, w, c).to(x.dtype).permute(0, 3, 1, 2)
+
+
+def make_norm(norm: str, features: int, zero_init: bool = False
+              ) -> nn.Module:
+    """The norm of one site; ``zero_init`` (``bn3``) applies to "affine"."""
+    if norm == "group":
+        return GroupNorm32(features)
+    if norm in ("frozen", "affine"):
+        return FrozenBatchNorm(features, trainable=norm == "affine",
+                               zero_init=zero_init and norm == "affine")
+    raise ValueError(f"backbone.norm: unknown norm {norm!r} (expected "
+                     "'frozen', 'affine' or 'group')")
+
+
 class Bottleneck(nn.Module):
     """Caffe-variant bottleneck: stride on the first 1x1 conv."""
 
-    def __init__(self, cin: int, width: int, stride: int):
+    def __init__(self, cin: int, width: int, stride: int,
+                 norm: str = "frozen"):
         super().__init__()
         self.conv1 = Conv2d(cin, width, 1, stride=stride, bias=False)
-        self.bn1 = FrozenBatchNorm(width)
+        self.bn1 = make_norm(norm, width)
         self.conv2 = Conv2d(width, width, 3, padding=1, bias=False)
-        self.bn2 = FrozenBatchNorm(width)
+        self.bn2 = make_norm(norm, width)
         self.conv3 = Conv2d(width, width * 4, 1, bias=False)
-        self.bn3 = FrozenBatchNorm(width * 4)
+        self.bn3 = make_norm(norm, width * 4, zero_init=True)
         self.downsample = None
         if stride != 1 or cin != width * 4:
             self.downsample = nn.Sequential(
                 Conv2d(cin, width * 4, 1, stride=stride, bias=False),
-                FrozenBatchNorm(width * 4))
+                make_norm(norm, width * 4))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         idn = x if self.downsample is None else self.downsample(x)
@@ -79,11 +136,16 @@ class Bottleneck(nn.Module):
 class ResNetFPN(nn.Module):
     """ResNet-{26,50,101,152} + FPN producing P2..P6 (``fpn_dim`` each)."""
 
-    def __init__(self, depth: int = 101, fpn_dim: int = 256):
+    def __init__(self, depth: int = 101, fpn_dim: int = 256,
+                 norm: str = "frozen", frozen_stages: int = 1,
+                 remat: bool = False):
         super().__init__()
+        self.norm = norm
+        self.frozen_stages = frozen_stages
+        self.remat = remat
         self.RCNN_layer0 = nn.Sequential(
             Conv2d(3, 64, 7, stride=2, padding=3, bias=False),
-            FrozenBatchNorm(64), nn.ReLU(),
+            make_norm(norm, 64), nn.ReLU(),
             nn.MaxPool2d(3, stride=2, padding=1))
         cin = 64
         for li, (width, n) in enumerate(zip((64, 128, 256, 512),
@@ -92,9 +154,12 @@ class ResNetFPN(nn.Module):
             for b in range(n):
                 blocks.append(Bottleneck(cin, width,
                                          (1 if li == 1 else 2) if b == 0
-                                         else 1))
+                                         else 1, norm))
                 cin = width * 4
             setattr(self, f"RCNN_layer{li}", nn.Sequential(*blocks))
+        n_frozen = min(frozen_stages + 1, 5) if norm == "frozen" else 0
+        for li in range(n_frozen):
+            getattr(self, f"RCNN_layer{li}").requires_grad_(False)
         d = fpn_dim
         self.RCNN_toplayer = Conv2d(2048, d, 1)
         self.RCNN_latlayer1 = Conv2d(1024, d, 1)
@@ -109,11 +174,20 @@ class ResNetFPN(nn.Module):
         """images [N, H, W, 3] -> P2..P6 as NHWC views [N, H_l, W_l, C]."""
         x = images.to(dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        c1 = self.RCNN_layer0(x)
-        c2 = self.RCNN_layer1(c1)
-        c3 = self.RCNN_layer2(c2)
-        c4 = self.RCNN_layer3(c3)
-        c5 = self.RCNN_layer4(c4)
+        frozen = self.norm == "frozen"
+        x = self.RCNN_layer0(x)
+        if frozen and self.frozen_stages >= 0:
+            x = x.detach()
+        remat = self.remat and torch.is_grad_enabled()
+        stages = []
+        for li in range(1, 5):
+            for block in getattr(self, f"RCNN_layer{li}"):
+                x = (torch.utils.checkpoint.checkpoint(
+                    block, x, use_reentrant=False) if remat else block(x))
+            if frozen and li <= self.frozen_stages:
+                x = x.detach()
+            stages.append(x)
+        c2, c3, c4, c5 = stages
         p5 = self.RCNN_toplayer(c5)
         p4 = _upsample_add(p5, self.RCNN_latlayer1(c4))
         p3 = _upsample_add(p4, self.RCNN_latlayer2(c3))

@@ -1,5 +1,6 @@
 """The port's copies and bridges pinned to the JAX package, on the CPU:
-the config copy, the renderer copy, and the weight converter.
+the config copy, the renderer and ground-truth copy, and the weight
+converter.
 
 Exact comparisons throughout: these are copies, not re-implementations.
 """
@@ -15,9 +16,11 @@ from stereo_rcnn_tpu import config as j_config
 from stereo_rcnn_tpu.convert.resnet_import import _fold_bn
 from stereo_rcnn_tpu.convert.stereo_import import import_detector
 from stereo_rcnn_tpu.data.synthetic import synthetic_batch
+from stereo_rcnn_tpu.train import init_train_state
 from stereo_rcnn_tpu_torch import config as t_config
 from stereo_rcnn_tpu_torch.convert.from_jax import state_dict_from_jax
-from stereo_rcnn_tpu_torch.data.synthetic import synthetic_images
+from stereo_rcnn_tpu_torch.data.synthetic import (
+    synthetic_batch as t_synthetic_batch, synthetic_images)
 from stereo_rcnn_tpu_torch.models.detector import StereoRCNN
 
 from tests.test_convert_full import DEPTH, FPN_DIM, TorchStereoRCNN
@@ -31,6 +34,13 @@ def test_config_copy_matches(make):
     assert ours.box_off == theirs.box_off
 
 
+def test_synthetic_fullres_config_matches_yaml():
+    """``synthetic_fullres_config()`` is configs/synthetic_fullres.yml."""
+    theirs = j_config.load_config("configs/synthetic_fullres.yml")
+    assert (dataclasses.asdict(t_config.synthetic_fullres_config()) ==
+            dataclasses.asdict(theirs))
+
+
 def test_renderer_copy_is_byte_identical():
     cfg_t = t_config.tiny_test_config()
     cfg_j = j_config.tiny_test_config()
@@ -42,6 +52,24 @@ def test_renderer_copy_is_byte_identical():
     np.testing.assert_array_equal(ir_t, ir_j)
     for a, b in zip(calib_t, calib_j):
         np.testing.assert_array_equal(a, b)
+
+
+def test_ground_truth_copy_is_byte_identical():
+    """``synthetic_batch``'s images and packed ground truth, field by
+    field, dtypes included (several objects per frame, padded slots)."""
+    cfg_t = t_config.tiny_test_config()
+    cfg_j = j_config.tiny_test_config()
+    ours = t_synthetic_batch(cfg_t, 3, seed=7, n_objects=5)
+    theirs = synthetic_batch(cfg_j, batch=3, seed=7, n_objects=5)
+    for a, b in zip(ours[:2], theirs[:2]):
+        np.testing.assert_array_equal(a, b)
+    gt_t, gt_j = ours[2], theirs[2]
+    assert gt_t._fields == gt_j._fields
+    assert gt_j.valid.any() and not gt_j.valid.all()
+    for name in gt_j._fields:
+        a, b = getattr(gt_t, name), getattr(gt_j, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
 
 
 def _strip(key):
@@ -110,10 +138,48 @@ def test_from_jax_raises_on_unmapped_leaf(twin_round_trip):
         state_dict_from_jax(jax.tree.map(np.asarray, params), cfg)
 
 
+@pytest.mark.parametrize("norm", ["group", "affine"])
+def test_from_jax_maps_training_state(norm):
+    """A JAX training state's tree (GroupNorm ``gn`` leaves or affine
+    norms, and ``uncert``) maps onto the port's model names bit for bit."""
+    base = j_config.tiny_test_config()
+    cfg_j = dataclasses.replace(
+        base, backbone=dataclasses.replace(base.backbone, norm=norm),
+        rcnn=dataclasses.replace(base.rcnn, roi_align_impl="pallas"))
+    params = jax.tree.map(np.asarray,
+                          init_train_state(cfg_j, jax.random.PRNGKey(0)
+                                           ).params)
+    params["uncert"] = np.arange(6, dtype=np.float32)
+    cfg = t_config.Config(**{f.name: getattr(cfg_j, f.name)
+                             for f in dataclasses.fields(cfg_j)})
+    ours = state_dict_from_jax(params, cfg)
+    np.testing.assert_array_equal(ours.pop("uncert"), params["uncert"])
+    model = StereoRCNN(cfg)
+    assert set(ours) == set(model.state_dict())
+    model.load_state_dict(ours, strict=True)
+    bb = params["model"]["backbone_net"]
+    if norm == "group":
+        np.testing.assert_array_equal(
+            ours["backbone_net.RCNN_layer0.1.gn.weight"],
+            bb["bn1"]["gn"]["scale"])
+        np.testing.assert_array_equal(
+            ours["backbone_net.RCNN_layer2.0.downsample.1.gn.bias"],
+            bb["layer2_0"]["downsample_bn"]["gn"]["bias"])
+    else:
+        # Affine zero-gamma init on bn3 only, in both packages.
+        assert not ours["backbone_net.RCNN_layer1.0.bn3.scale"].any()
+        np.testing.assert_array_equal(
+            ours["backbone_net.RCNN_layer1.0.bn1.scale"],
+            bb["layer1_0"]["bn1"]["scale"])
+        assert set(dict(model.named_parameters())) >= {
+            "backbone_net.RCNN_layer1.0.bn3.scale"}
+
+
 @pytest.mark.parametrize("section, field, value", [
     ("rcnn", "roi_align_impl", "xla"),
     ("rcnn", "roi_align_hat", "kron_bf16"),
-    ("backbone", "norm", "group"),
+    ("rcnn", "roi_align_hat", "kron_hilo"),
+    ("backbone", "fpn_upsample", "nearest"),
 ])
 def test_unported_options_raise(section, field, value):
     """Options the port does not implement raise instead of running

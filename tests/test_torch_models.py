@@ -24,6 +24,7 @@ from stereo_rcnn_tpu.models.stereo_rpn import StereoRPNHead
 from stereo_rcnn_tpu_torch.config import tiny_test_config
 from stereo_rcnn_tpu_torch.convert.from_jax import state_dict_from_jax
 from stereo_rcnn_tpu_torch.models.detector import build_model
+from stereo_rcnn_tpu_torch.models.resnet_fpn import GroupNorm32
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -136,3 +137,62 @@ def test_keypoint_head_parity(setup):
     with torch.no_grad():
         ours = model.keypoints(torch.from_numpy(pooled))
     _close(ours, outs["kpt_head"], "kpt_logits")
+
+
+@pytest.mark.parametrize("norm", ["group", "affine"])
+def test_backbone_norm_parity(norm):
+    """The GroupNorm and affine backbones, their norm parameters
+    randomised, through ``convert.from_jax``."""
+    base = _parity_cfg(tiny_test_config())
+    cfg = dataclasses.replace(base, backbone=dataclasses.replace(
+        base.backbone, norm=norm))
+    rng = np.random.RandomState(1)
+    img = rng.randn(2, H, W, 3).astype(np.float32) * 50
+    mod = ResNetFPN(depth=cfg.backbone.depth, fpn_dim=cfg.backbone.fpn_dim,
+                    dtype=jnp.float32, norm=norm)
+    p = mod.init(jax.random.PRNGKey(0), img)["params"]
+    p = _randomise_bn(jax.tree.map(np.asarray, p), rng)
+    theirs = jax.jit(mod.apply)({"params": p}, img)
+    sd = state_dict_from_jax({"params": {"backbone_net": p}}, cfg)
+    model = build_model(cfg)
+    model.backbone_net.load_state_dict(
+        {k[len("backbone_net."):]: v for k, v in sd.items()}, strict=True)
+    with torch.no_grad():
+        ours = model.backbone(torch.from_numpy(img))
+    for o, t, name in zip(ours, theirs, ("p2", "p3", "p4", "p5", "p6")):
+        _close(o, t, name)
+
+
+def test_group_norm_matches_flax_with_gradients():
+    """One GroupNorm on a channels-last input with a large mean (where
+    the one-pass variance loses digits): output and gradients w.r.t. the
+    input, scale and bias within 1e-5 of flax's."""
+    import flax.linen as fnn
+    rng = np.random.RandomState(0)
+    x = (rng.randn(2, 16, 24, 64) * 3 + 5).astype(np.float32)    # NHWC
+    w = rng.randn(2, 16, 24, 64).astype(np.float32)
+    gn = fnn.GroupNorm(num_groups=32, dtype=jnp.float32)
+    params = gn.init(jax.random.PRNGKey(0), x)["params"]
+    params = {k: (np.asarray(v) + rng.randn(*v.shape) * 0.1)
+              .astype(np.float32) for k, v in params.items()}
+
+    def loss(p, x_):
+        return (gn.apply({"params": p}, x_) * w).sum()
+    y_j = gn.apply({"params": params}, x)
+    g_p, g_x = jax.grad(loss, argnums=(0, 1))(params, x)
+
+    m = GroupNorm32(64)
+    with torch.no_grad():
+        m.gn.weight.copy_(torch.from_numpy(params["scale"]))
+        m.gn.bias.copy_(torch.from_numpy(params["bias"]))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_(True)
+    y = m(xt).permute(0, 2, 3, 1)
+    (y * torch.from_numpy(w)).sum().backward()
+    for ours, theirs, name in ((y, y_j, "y"),
+                               (xt.grad.permute(0, 2, 3, 1), g_x, "dx"),
+                               (m.gn.weight.grad, g_p["scale"], "dscale"),
+                               (m.gn.bias.grad, g_p["bias"], "dbias")):
+        theirs = np.asarray(theirs)
+        np.testing.assert_allclose(ours.detach().numpy(), theirs, rtol=0,
+                                   atol=1e-5 * np.abs(theirs).max(),
+                                   err_msg=name)

@@ -76,7 +76,8 @@ def test_box_coder_iou_clip_union(off):
 @pytest.mark.parametrize("off", [0.0, 1.0])
 def test_anchors_match(off):
     np.testing.assert_array_equal(
-        _np(t_anchors.generate_anchors(AnchorConfig(), 384, 1280, off)),
+        _np(t_anchors.generate_anchors(AnchorConfig(), 384, 1280, off,
+                                       "cpu")),
         np.asarray(j_anchors.generate_anchors(JAnchorConfig(), 384, 1280,
                                               off)))
 

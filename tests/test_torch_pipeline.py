@@ -169,7 +169,7 @@ def test_stage_rpn_and_proposals(run):
     h, w = cfg.data.image_h, cfg.data.image_w
     props = select_proposals(_t(raw["rpn_logits"]), _t(raw["rpn_deltas"]),
                              generate_anchors(cfg.anchors, h, w,
-                                              cfg.box_off),
+                                              cfg.box_off, "cpu"),
                              h, w, cfg.rpn, train=False, off=cfg.box_off)
     jp = raw["proposals"]
     np.testing.assert_array_equal(props.valid.numpy(), np.asarray(jp.valid))
@@ -237,7 +237,7 @@ def test_stage_postprocess_and_keypoints(run):
 
 def test_stage_solve_and_align(run):
     cfg = run["cfg"]
-    calib_b = t_inf.broadcast_calib(run["calib"], 2)
+    calib_b = t_inf.broadcast_calib(run["calib"], 2, "cpu")
     d3 = t_inf.solve_and_align(_det_to_torch(run["det_k"]), _t(run["il"]),
                                _t(run["ir"]), calib_b, cfg)
     _check_positions(d3, run["d3"], run["stable"](run["d3"]))

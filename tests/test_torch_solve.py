@@ -75,7 +75,7 @@ def test_solve_batch_matches(scene):
         rt = t_box.solve_batch(
             torch.from_numpy(obs), torch.from_numpy(dims),
             torch.from_numpy(alpha), torch.from_numpy(kidx),
-            t_inf.broadcast_calib(calib, len(obs)), iters=cfg.gn_iters,
+            t_inf.broadcast_calib(calib, len(obs), "cpu"), iters=cfg.gn_iters,
             fixed_z=None if fixed is None else torch.from_numpy(fixed))
         np.testing.assert_allclose(rt.position.numpy(),
                                    np.asarray(rj.position), atol=1e-3)
@@ -95,7 +95,7 @@ def test_written_out_jacobian_matches_jvp(scene):
     state[0, 2] = 0.8                  # some corners behind z = 1e-3
     args = (torch.from_numpy(flat[:, 7:10]),
             torch.from_numpy(flat[:, 11].astype(np.int32)),
-            t_inf.broadcast_calib(calib, len(flat)))
+            t_inf.broadcast_calib(calib, len(flat), "cpu"))
     pred, jac = t_box._observe_jac(state, *args)
     cols = [torch.func.jvp(lambda s: t_box._observe_jac(s, *args)[0],
                            (state,), (torch.eye(4)[k].expand_as(state),))[1]
@@ -121,7 +121,7 @@ def test_align_batch_matches(scene):
                                           theta, dims, calib_b, valid)
     rt = t_align.align_batch(*[torch.from_numpy(x) for x in (
         gl, gr, box_left, border, pos, theta, dims)],
-        t_inf.broadcast_calib(calib, 2), cfg, torch.from_numpy(valid))
+        t_inf.broadcast_calib(calib, 2, "cpu"), cfg, torch.from_numpy(valid))
     np.testing.assert_allclose(rt.z.numpy(), np.asarray(rj.z), atol=1e-4)
     np.testing.assert_allclose(rt.error.numpy(), np.asarray(rj.error),
                                rtol=1e-4)
