@@ -73,13 +73,14 @@ class RCNNConfig:
 
     pooling_size: int = 7                # cfg.POOLING_SIZE
     sampling_ratio: int = 2              # RoIAlign sampling_ratio
-    # RoIAlign implementation: "xla" (the JAX package's atlas gather) or
-    # "pallas" (the fused stereo kernel, which clamps sampling to a
-    # per-level window).  The port implements only "pallas", as the CUDA
-    # kernel in ``ops/stereo_roi_align.py``; "xla" raises.
+    # RoIAlign implementation: "xla" (the atlas gather, plain torch in
+    # ``ops/roi_align.py``) or "pallas" (the fused stereo kernel, which
+    # clamps sampling to a per-level window: the CUDA kernel in
+    # ``ops/stereo_roi_align.py``).
     roi_align_impl: str = "xla"
     # Fused-kernel sampling-weight precision: "f32" (exact, default) or
-    # "kron_bf16" / "kron_hilo" (JAX package only; the port raises).
+    # "kron_bf16" / "kron_hilo" (one combined weight per window cell in
+    # bf16, or bf16 hi + lo); the backward is the exact f32 one for all.
     roi_align_hat: str = "f32"
     fc_dim: int = 2048                   # FC trunk width after pooled concat
     num_classes: int = 2                 # ('__background__', 'Car')

@@ -83,7 +83,9 @@ __global__ void stereo_roi_align_bwd_kernel(Grads grads,
     const int i = t % kPk;
     const int win = axis == 0 ? grads.win_h[level] : grads.win_w[level];
     const int origin = meta[1 + axis];
-    float pos = geom[axis] + (static_cast<float>(i) + 0.5f) * geom[2 + axis];
+    // Rounded once, as the forward's positions.
+    float pos = __fmaf_rn(static_cast<float>(i) + 0.5f, geom[2 + axis],
+                          geom[axis]);
     pos = fminf(fmaxf(pos, 0.0f), static_cast<float>(win - 1));
     const float fl = floorf(pos);
     const int lo = static_cast<int>(fl);

@@ -1,13 +1,15 @@
 """Stereo R-CNN inference path (torch).
 
 Port of ``stereo_rcnn_tpu.models.detector``: a shared-weight backbone over
-the left and right images run as one batch, the stereo RPN, the fused
-stereo RoIAlign (``ops.stereo_roi_align``, the CUDA kernel on the card),
-the RCNN head, per-class decode + NMS + top-k, and the keypoint head on
-the NMS survivors only.  Every stage has a fixed output shape.
-``roi_features`` is differentiable: its backward is the CUDA kernel
-``csrc/stereo_roi_align_bwd.cu`` on the card, so training
-(``train.step``) composes the same functions.
+the left and right images run as one batch, the stereo RPN, the paired
+RoIAlign (``rcnn.roi_align_impl``: the fused stereo kernel of
+``ops.stereo_roi_align``, a CUDA kernel on the card, or the atlas gather
+of ``ops.roi_align``), the RCNN head, per-class decode + NMS + top-k, and
+the keypoint head on the NMS survivors only.  Every stage has a fixed
+output shape.  ``roi_features`` is differentiable (the fused kernel's
+backward is the CUDA kernel ``csrc/stereo_roi_align_bwd.cu`` on the card;
+the gather's is autograd's), so training (``train.step``) composes the
+same functions.
 
 :class:`StereoRCNN` holds the weights (upstream ``state_dict`` names); the
 functions below compose it as the JAX package's functions compose its
@@ -36,6 +38,7 @@ from stereo_rcnn_tpu_torch.models.stereo_rpn import (Proposals, StereoRPNHead,
                                                      select_proposals,
                                                      take_per_image)
 from stereo_rcnn_tpu_torch.ops.nms import nms_indices, top_k_stable
+from stereo_rcnn_tpu_torch.ops.roi_align import multilevel_roi_align
 from stereo_rcnn_tpu_torch.ops.stereo_roi_align import stereo_roi_align_packed
 
 
@@ -49,21 +52,12 @@ class StereoRCNN(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         rc = cfg.rcnn
-        if rc.roi_align_impl != "pallas":
-            raise NotImplementedError(
-                f"rcnn.roi_align_impl={rc.roi_align_impl!r}: the port has "
-                "only the fused stereo kernel ('pallas'); the XLA atlas "
-                "RoIAlign is queued in ROADMAP.md (Queue 1)")
-        if rc.roi_align_hat != "f32":
-            raise NotImplementedError(
-                f"rcnn.roi_align_hat={rc.roi_align_hat!r}: the port's kernel "
-                "uses exact f32 sampling weights; kron_bf16 is queued in "
-                "ROADMAP.md (Queue 2, K1)")
         if cfg.backbone.fpn_upsample != "bilinear":
             raise NotImplementedError(
                 f"backbone.fpn_upsample={cfg.backbone.fpn_upsample!r}: the "
                 "port's FPN upsamples bilinearly only")
-        if rc.kpt_pool_size != 2 * rc.pooling_size:
+        if (rc.roi_align_impl == "pallas" and
+                rc.kpt_pool_size != 2 * rc.pooling_size):
             raise ValueError("the fused RoIAlign needs kpt_pool_size == "
                              "2 * pooling_size")
         self.cfg = cfg
@@ -132,17 +126,38 @@ def roi_features(model: StereoRCNN, feats_l, feats_r, rois_left,
     """Paired RoIAlign producing the head inputs (rois [B, N, 4]).
 
     Returns ``concat`` [B*N, P, P, 2C] (left || right, for the FC trunk),
-    ``left_kpt`` [B*N, Pk, Pk, C] and ``left_kpt_rows`` [B*N, 294, C], the
-    kernel's packed rows, whose first Pk*Pk rows are the kpt samples.
-    Slices are views: the keypoint branch gathers its survivors before
-    slicing, so the packed block is not copied.
+    ``left_kpt`` [B*N, Pk, Pk, C] and ``left_kpt_rows`` [B*N, rows, C],
+    whose first Pk*Pk rows are the kpt samples.
+
+    ``rcnn.roi_align_impl="pallas"``: the fused stereo kernel (K1 on the
+    card) with ``rcnn.roi_align_hat`` sampling weights, float32; the rows
+    are its 294 packed rows, and slices are views (the keypoint branch
+    gathers its survivors before slicing, so the block is not copied).
+    Any other value: three :func:`multilevel_roi_align` calls, as in the
+    JAX package (left and right 7x7 at ``sampling_ratio``, left 14x14 at
+    ratio 1), in the features' dtype; the rows are the 196 kpt samples.
     """
     cfg = model.cfg
     strides = cfg.anchors.strides[:4]                 # rois use P2..P5 only
     p, pk = cfg.rcnn.pooling_size, cfg.rcnn.kpt_pool_size
     b, n = rois_left.shape[:2]
+    if cfg.rcnn.roi_align_impl != "pallas":
+        sr = cfg.rcnn.sampling_ratio
+        pl_ = multilevel_roi_align(feats_l[:4], rois_left, strides, p, sr)
+        pr_ = multilevel_roi_align(feats_r[:4], rois_right, strides, p, sr)
+        # The 14x14 output already oversamples the bins: ratio 1 gives the
+        # 7x7 / ratio-2 pools' sample positions.
+        pk_l = multilevel_roi_align(feats_l[:4], rois_left, strides, pk, 1)
+        c = pl_.shape[-1]
+        return {
+            "concat": torch.cat([pl_, pr_], dim=-1).reshape(b * n, p, p,
+                                                           2 * c),
+            "left_kpt": pk_l.reshape(b * n, pk, pk, c),
+            "left_kpt_rows": pk_l.reshape(b * n, pk * pk, c),
+        }
     packed = stereo_roi_align_packed(feats_l[:4], feats_r[:4], rois_left,
-                                     rois_right, strides)  # [B, N, rows, C]
+                                     rois_right, strides,
+                                     cfg.rcnn.roi_align_hat)  # [B, N, rows, C]
     c = packed.shape[-1]
     kk, pp = pk * pk, p * p
     flat = packed.reshape(b * n, kk + 2 * pp, c)

@@ -4,7 +4,10 @@ The library is compiled at first use for ``sm_90a`` into
 ``stereo_rcnn_tpu_torch/csrc/build/`` (git-ignored), under a name keyed by
 a hash of the source and the flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.  Nothing here falls back: a missing
-``nvcc`` or a failed build raises.
+``nvcc`` or a failed build raises.  :class:`CudaKernel` binds one C entry
+of a source; :func:`on_device` picks a kernel or its plain version by the
+tensors' device; :func:`check_levels` checks the feature levels a kernel
+reads.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import subprocess
 import tempfile
 import time
 from typing import NamedTuple
+
+import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -71,3 +76,68 @@ def load_library(source: str) -> tuple[ctypes.CDLL, BuildInfo]:
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
     return ctypes.CDLL(lib_path), BuildInfo(lib_path, seconds, log)
+
+
+class CudaKernel:
+    """ctypes binding of one C entry of a ``csrc/`` source, built at first
+    use.  ``launches`` counts kernel launches; it grows in ``__call__``
+    only, right after a launch that returned no error."""
+
+    source = ""
+    symbol = ""
+    argtypes: list = []
+
+    def __init__(self):
+        self.launches = 0
+        self.build_info = None
+        self._fn = None
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+
+    def load(self):
+        if self._fn is None:
+            lib, self.build_info = load_library(self.source)
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def _launched(self, err: int) -> None:
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
+                               f"{err}")
+        self.launches += 1
+
+
+def on_device(dev, name: str, cuda_fn, cpu_fn):
+    """CUDA tensors take the kernel, CPU tensors the plain version; any
+    other device raises."""
+    if dev.type == "cuda":
+        return cuda_fn
+    if dev.type == "cpu":
+        return cpu_fn
+    raise RuntimeError(f"{name}: no implementation for device {dev}")
+
+
+def check_levels(feats, dev, b: int):
+    """``(dtype, C)`` of one side's levels as the kernels read them:
+    contiguous NHWC ``[b, H_l, W_l, C]`` on ``dev``, all bfloat16 or all
+    float32, C even."""
+    dtype = feats[0].dtype
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"features must be bfloat16 or float32, got {dtype}")
+    c = feats[0].shape[-1]
+    if c % 2:
+        raise ValueError(f"channel count must be even, got {c}")
+    for f in feats:
+        if f.device != dev or f.dtype != dtype:
+            raise ValueError("all levels must share the rois' device and one "
+                             "dtype")
+        if f.dim() != 4 or f.shape[0] != b or f.shape[3] != c:
+            raise ValueError(f"level shape {tuple(f.shape)} is not "
+                             f"[{b}, H, W, {c}]")
+        if not f.is_contiguous():
+            raise ValueError("levels must be contiguous NHWC")
+    return dtype, c

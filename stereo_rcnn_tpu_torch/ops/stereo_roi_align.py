@@ -1,17 +1,25 @@
-"""Fused stereo RoIAlign and its gradient: the CUDA kernels
-``csrc/stereo_roi_align.cu`` (K1, forward) and
-``csrc/stereo_roi_align_bwd.cu`` (K2, backward), and their plain PyTorch
-versions.
+"""Fused stereo RoIAlign, its gradient and its atlas variant: the CUDA
+kernels ``csrc/stereo_roi_align.cu`` (K1, forward),
+``csrc/stereo_roi_align_bwd.cu`` (K2, backward) and
+``csrc/stereo_roi_align_atlas.cu`` (K4), and their plain PyTorch versions.
 
-Port of ``stereo_rcnn_tpu.ops.roi_align_pallas.stereo_roi_align_batched_packed``
-with ``hat="f32"`` and its custom VJP.  Per image and roi the forward
-returns one packed block of ``294 x C`` float32 rows: 196 left 14x14
-samples (keypoint branch), the left 7x7 pool (their 2x2 means), the right
-7x7 pool (the 2x2 means of the same grid on the right features).  Levels
-P2..P5 are NHWC ``[B, H_l, W_l, C]``; rois are ``[B, R, 4]`` xyxy float32
-in image coordinates.  The backward scatters a packed cotangent back
-through the same bilinear taps into float32 per-level gradients, cast to
-the features' dtype; the rois get no gradient.
+K1 and K2 port ``stereo_rcnn_tpu.ops.roi_align_pallas.
+stereo_roi_align_batched_packed`` and its custom VJP.  Per image and roi
+the forward returns one packed block of ``294 x C`` float32 rows: 196 left
+14x14 samples (keypoint branch), the left 7x7 pool (their 2x2 means), the
+right 7x7 pool at sampling ratio 2.  ``hat`` selects the sampling weights
+(``rcnn.roi_align_hat``): ``"f32"`` exact, or the single combined kron
+weight per (sample, window cell) rounded to bf16 (``"kron_bf16"``) or
+split into bf16 hi + lo (``"kron_hilo"``).  Levels P2..P5 are NHWC
+``[B, H_l, W_l, C]``; rois are ``[B, R, 4]`` xyxy float32 in image
+coordinates.  The backward, whatever the hat, is the exact f32 transpose
+(as in the JAX package): it scatters a packed cotangent back through the
+f32 bilinear taps into float32 per-level gradients, cast to the features'
+dtype; the rois get no gradient.
+
+K4 ports ``stereo_roi_align_pallas_atlas``: K1's f32 sampling over a
+row-packed level atlas (:func:`pack_atlas`, :func:`atlas_meta`), returning
+``(out7l, out7r, out14l)``; it has no gradient.
 
 :func:`roi_window_meta` computes the level, window and sample geometry on
 the tensors' device; the kernels and the plain versions all read it, so
@@ -24,7 +32,10 @@ import ctypes
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
+from stereo_rcnn_tpu_torch.ops.cuda_build import (CudaKernel, check_levels,
+                                                  on_device)
 from stereo_rcnn_tpu_torch.ops.roi_align import fpn_level_assignment
 
 # Per-level sampling windows of the TPU kernel (roi_align_pallas.py
@@ -33,23 +44,30 @@ STEREO_WIN = ((48, 64), (48, 64), (24, 64), (12, 40))
 PK = 14                     # kpt samples per axis
 P = 7                       # pooled bins per axis
 ROWS = PK * PK + 2 * P * P  # 294
+# Sampling-weight modes (roi_align_pallas.py _HAT_MODES) and the kernel's
+# code for each.
+HAT_MODES = {"f32": 0, "kron_bf16": 1, "kron_hilo": 2}
+ATLAS_WIN = (48, 64)        # K4's window; its atlas adds ATLAS_WIN[0] rows
 
 
-def window_shapes(level_shapes):
+def window_shapes(level_shapes, windows=STEREO_WIN):
+    """Each level's sampling window of ``windows`` clamped to the level."""
     return [(min(h, bh), min(w, bw))
-            for (h, w), (bh, bw) in zip(level_shapes, STEREO_WIN)]
+            for (h, w), (bh, bw) in zip(level_shapes, windows)]
 
 
 def roi_window_meta(level_shapes, rois: torch.Tensor,
-                    strides: Sequence[int], ps: int = PK):
+                    strides: Sequence[int], ps: int = PK,
+                    windows=STEREO_WIN):
     """meta int32 ``[..., 4]`` (level, y0, x0, valid) and geom float32
-    ``[..., 4]`` (y1, x1, bin_h, bin_w) in window coordinates; window
-    origins are 8-aligned on the W axis as in the TPU kernel."""
+    ``[..., 4]`` (y1, x1, bin_h, bin_w) in window coordinates, for ``ps``
+    bins per axis and the per-level ``windows``; window origins are
+    8-aligned on the W axis as in the TPU kernel."""
     levels = fpn_level_assignment(rois, len(level_shapes))
     # One small table per call: each host-to-device copy syncs the stream.
     table = torch.tensor(
         [[1.0 / s, h, w, wh, ww] for s, (h, w), (wh, ww)
-         in zip(strides, level_shapes, window_shapes(level_shapes))],
+         in zip(strides, level_shapes, window_shapes(level_shapes, windows))],
         dtype=torch.float32, device=rois.device)[levels]
     lvl_scale, lvl_h, lvl_w, win_h, win_w = table.unbind(-1)
     scaled = rois * lvl_scale[..., None]
@@ -71,36 +89,48 @@ def roi_window_meta(level_shapes, rois: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version.
+# Plain PyTorch versions.
 # ---------------------------------------------------------------------------
 
-def _taps(meta, geom, win, n: int):
-    """Bilinear taps of a side's n x n sample grid, each [B, R, n]: the
-    absolute level rows ``y_lo``/``y_hi`` and columns ``x_lo``/``x_hi``
-    and the fractions ``fy``/``fx`` (weights 1 - f on lo, f on hi).
-    Samples are clamped to the window; ``hi`` is ``min(lo + 1, win - 1)``."""
+def _fused_multiply_add(a, b, c) -> torch.Tensor:
+    """``a * b + c`` in float32 with one rounding, as a fused multiply-add
+    gives it (the float32 product is exact in float64).  Every sample
+    position is computed so, as XLA computes the JAX kernels' positions on
+    the CPU and as the CUDA kernels do (``__fmaf_rn``)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _axis_taps(start, step, origin, bound, grid):
+    """Bilinear taps of the positions ``start + grid * step`` clamped to
+    ``[0, bound]`` (``[..., 1]`` operands, ``grid`` ``[n]``): the cells
+    ``lo = floor(p)`` and ``hi = min(lo + 1, bound)``, each offset by
+    ``origin``, and the fraction ``p - lo`` (weights 1 - f on lo, f on hi)."""
+    pos = torch.minimum(torch.clamp(_fused_multiply_add(grid, step, start),
+                                    min=0.0), bound)
+    lo = torch.floor(pos)
+    return lo + origin, torch.minimum(lo + 1.0, bound) + origin, pos - lo
+
+
+def _taps(meta, geom, win, n: int, s: int = 1):
+    """Taps of a side's n x n sample grid at ``(k + 0.5) / s`` bins, each
+    ``[B, R, n]``: absolute level rows ``y_lo``/``y_hi`` and columns
+    ``x_lo``/``x_hi`` and the fractions ``fy``/``fx``; samples are clamped
+    to the window."""
     dev = meta.device
-    level = meta[..., 0].long()
-    origin_y = meta[..., 1:2].float()
-    origin_x = meta[..., 2:3].float()
-    win_h = torch.tensor([h for h, _ in win], dtype=torch.float32,
-                         device=dev)[level][..., None]
-    win_w = torch.tensor([w for _, w in win], dtype=torch.float32,
-                         device=dev)[level][..., None]
-    grid = torch.arange(n, dtype=torch.float32, device=dev) + 0.5
-    ys = torch.minimum(torch.clamp(geom[..., 0:1] + grid * geom[..., 2:3],
-                                   min=0.0), win_h - 1.0)      # [B, R, n]
-    xs = torch.minimum(torch.clamp(geom[..., 1:2] + grid * geom[..., 3:4],
-                                   min=0.0), win_w - 1.0)
-    y_lo, x_lo = torch.floor(ys), torch.floor(xs)
-    fy, fx = ys - y_lo, xs - x_lo
-    y_hi = torch.minimum(y_lo + 1.0, win_h - 1.0) + origin_y
-    x_hi = torch.minimum(x_lo + 1.0, win_w - 1.0) + origin_x
-    return y_lo + origin_y, y_hi, x_lo + origin_x, x_hi, fy, fx
+    win_hw = torch.tensor(win, dtype=torch.float32,
+                          device=dev)[meta[..., 0].long()]
+    grid = (torch.arange(n, dtype=torch.float32, device=dev) + 0.5) / s
+    y_lo, y_hi, fy = _axis_taps(geom[..., 0:1], geom[..., 2:3],
+                               meta[..., 1:2].float(), win_hw[..., 0:1] - 1.0,
+                               grid)
+    x_lo, x_hi, fx = _axis_taps(geom[..., 1:2], geom[..., 3:4],
+                               meta[..., 2:3].float(), win_hw[..., 1:2] - 1.0,
+                               grid)
+    return y_lo, y_hi, x_lo, x_hi, fy, fx
 
 
 def _atlas_index(level_shapes, meta):
-    """``index(rows, cols) -> [B, R, n, n]`` row indices into the levels of
+    """``index(rows, cols) -> [B, R, n, m]`` row indices into the levels of
     all images concatenated (``[B * sum(H_l * W_l), C]``)."""
     b = meta.shape[0]
     dev = meta.device
@@ -119,19 +149,15 @@ def _atlas_index(level_shapes, meta):
     return index
 
 
-def _sample_side(feats, meta, geom, win, n: int) -> torch.Tensor:
-    """[B, R, n, n, C] float32 bilinear samples of one side: 4 gathered taps
-    per sample from the level atlas, weighted y first, then x."""
-    b, r = meta.shape[:2]
-    c = feats[0].shape[-1]
-    y_lo, y_hi, x_lo, x_hi, fy, fx = _taps(meta, geom, win, n)
-    index = _atlas_index([(f.shape[1], f.shape[2]) for f in feats], meta)
-    atlas = torch.cat([f.reshape(b, -1, c) for f in feats], dim=1)
-    atlas = atlas.reshape(-1, c)
+def _flat_levels(feats):
+    b, c = feats[0].shape[0], feats[0].shape[-1]
+    return torch.cat([f.reshape(b, -1, c) for f in feats],
+                     dim=1).reshape(-1, c)
 
-    def tap(rows, cols):
-        return atlas[index(rows, cols)].float()          # [B, R, n, n, C]
 
+def _bilinear(tap, y_lo, y_hi, x_lo, x_hi, fy, fx) -> torch.Tensor:
+    """``[B, R, n, n, C]`` float32 samples from four gathered taps
+    (``tap(rows, cols)``), weighted y first, then x."""
     wyl, wyh = (1.0 - fy)[..., :, None, None], fy[..., :, None, None]
     wxl, wxh = (1.0 - fx)[..., None, :, None], fx[..., None, :, None]
     t0 = wyl * tap(y_lo, x_lo) + wyh * tap(y_hi, x_lo)
@@ -139,8 +165,106 @@ def _sample_side(feats, meta, geom, win, n: int) -> torch.Tensor:
     return wxl * t0 + wxh * t1
 
 
+def sample_side(feats, meta, geom, win, n: int, s: int = 1) -> torch.Tensor:
+    """[B, R, n, n, C] float32 bilinear samples of one side."""
+    index = _atlas_index([(f.shape[1], f.shape[2]) for f in feats], meta)
+    atlas = _flat_levels(feats)
+    return _bilinear(lambda rows, cols: atlas[index(rows, cols)].float(),
+                    *_taps(meta, geom, win, n, s))
+
+
+def _kron_side(feats, meta, geom, win, n: int, avg: int, hat: str,
+               chunk: int = 64) -> torch.Tensor:
+    """``[B, R, n * n, C]`` float32: ``_sample_grid``'s kron branch taken
+    literally.  Per roi, the dense weight matrix ``[n * n, wh * ww]`` over
+    the largest window, ``W = (sum_a hat_y,a) * (sum_a hat_x,a) / avg^2``
+    with ``hat(cell) = max(0, 1 - |cell - p|)`` and ``p`` at
+    ``y1 + (i * avg + a + 0.5) * bin`` clamped to the level's window;
+    rounded to bf16 (``kron_bf16``) or split into bf16 hi + lo
+    (``kron_hilo``), and contracted in float32 with the window, whose
+    cells beyond the level's window are zero.  ``chunk`` rois at a time.
+    Positions are rounded once (:func:`_fused_multiply_add`): one an ulp
+    apart can flip a weight's bf16 rounding."""
+    b, r = meta.shape[:2]
+    c = feats[0].shape[-1]
+    dev = meta.device
+    f32 = torch.float32
+    wh, ww = max(h for h, _ in win), max(w for _, w in win)
+    win_hw = torch.tensor(win, dtype=f32, device=dev)[meta[..., 0].long()]
+    win_h, win_w = win_hw[..., 0:1], win_hw[..., 1:2]            # [B, R, 1]
+    cell_h = torch.arange(wh, dtype=f32, device=dev)
+    cell_w = torch.arange(ww, dtype=f32, device=dev)
+    rows = torch.minimum(cell_h, win_h - 1.0) + meta[..., 1:2].float()
+    cols = torch.minimum(cell_w, win_w - 1.0) + meta[..., 2:3].float()
+    index = _atlas_index([(f.shape[1], f.shape[2]) for f in feats],
+                         meta)(rows, cols).reshape(b * r, wh * ww)
+    inside = ((cell_h < win_h)[..., :, None] &
+              (cell_w < win_w)[..., None, :]).reshape(b * r, wh * ww, 1)
+    atlas = _flat_levels(feats)
+
+    idx = torch.arange(n, dtype=f32, device=dev)
+    wy = wx = 0.0
+    for a in range(avg):                               # avg-folded hats
+        k = idx * avg + a + 0.5
+        ys = torch.minimum(torch.clamp(
+            _fused_multiply_add(k, geom[..., 2:3], geom[..., 0:1]),
+            min=0.0), win_h - 1.0)                     # [B, R, n]
+        xs = torch.minimum(torch.clamp(
+            _fused_multiply_add(k, geom[..., 3:4], geom[..., 1:2]),
+            min=0.0), win_w - 1.0)
+        wy = wy + torch.clamp(1.0 - torch.abs(cell_h - ys[..., None]),
+                              min=0.0)                 # [B, R, n, wh]
+        wx = wx + torch.clamp(1.0 - torch.abs(cell_w - xs[..., None]),
+                              min=0.0)                 # [B, R, n, ww]
+    wy = wy.reshape(b * r, n, 1, wh, 1)
+    wx = wx.reshape(b * r, 1, n, 1, ww)
+    out = []
+    for i in range(0, b * r, chunk):
+        sl = slice(i, i + chunk)
+        wgt = (wy[sl] * wx[sl] * (1.0 / (avg * avg))).reshape(-1, n * n,
+                                                              wh * ww)
+        window = torch.where(inside[sl], atlas[index[sl]].float(),
+                             torch.zeros((), dtype=f32, device=dev))
+        hi = wgt.to(torch.bfloat16).float()
+        res = torch.bmm(hi, window)
+        if hat == "kron_hilo":
+            lo = (wgt - hi).to(torch.bfloat16).float()
+            res = res + torch.bmm(lo, window)
+        out.append(res)
+    return torch.cat(out).reshape(b, r, n * n, c)
+
+
+def stereo_roi_align_packed_ref(feats_l, feats_r, rois_l, rois_r, strides,
+                                hat: str = "f32") -> torch.Tensor:
+    """Plain PyTorch version of K1: ``[B, R, 294, C]`` float32."""
+    if hat not in HAT_MODES:        # as the JAX package's _HAT_MODES[hat]
+        raise KeyError(hat)
+    level_shapes = [(f.shape[1], f.shape[2]) for f in feats_l]
+    win = window_shapes(level_shapes)
+    b, r = rois_l.shape[:2]
+    c = feats_l[0].shape[-1]
+    meta_l, geom_l = roi_window_meta(level_shapes, rois_l, strides)
+    meta_r, geom_r = roi_window_meta(level_shapes, rois_r, strides)
+    zero = torch.zeros((), dtype=torch.float32, device=rois_l.device)
+    ok_l = meta_l[..., 3:4, None] > 0
+    ok_r = meta_r[..., 3:4, None] > 0
+    if hat == "f32":
+        left = sample_side(feats_l, meta_l, geom_l, win, PK)
+        right = sample_side(feats_r, meta_r, geom_r, win, PK)
+        pool_r = right.reshape(b, r, P, 2, P, 2, c).mean(dim=(3, 5))
+    else:
+        # The right side folds its 2x2 bin mean into the weights (avg 2).
+        left = _kron_side(feats_l, meta_l, geom_l, win, PK, 1, hat)
+        pool_r = _kron_side(feats_r, meta_r, geom_r, win, P, 2, hat)
+    pool_l = left.reshape(b, r, P, 2, P, 2, c).mean(dim=(3, 5))
+    return torch.cat([
+        torch.where(ok_l, left.reshape(b, r, PK * PK, c), zero),
+        torch.where(ok_l, pool_l.reshape(b, r, P * P, c), zero),
+        torch.where(ok_r, pool_r.reshape(b, r, P * P, c), zero)], dim=2)
+
+
 def _tap_contributions(g_samples, meta, geom, win, level_shapes, n: int):
-    """Transpose of :func:`_sample_side` as scatter operands: for each of
+    """Transpose of :func:`sample_side` as scatter operands: for each of
     the four taps, (rows [M] of the all-images atlas, weighted cotangent
     [M, C]) for the [B, R, n, n, C] sample cotangent ``g_samples``."""
     c = g_samples.shape[-1]
@@ -153,28 +277,6 @@ def _tap_contributions(g_samples, meta, geom, win, level_shapes, n: int):
             out.append((index(rows, cols).reshape(-1),
                         (w[..., None] * g_samples).reshape(-1, c)))
     return out
-
-
-def stereo_roi_align_packed_ref(feats_l, feats_r, rois_l, rois_r,
-                                strides) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: ``[B, R, 294, C]`` float32."""
-    level_shapes = [(f.shape[1], f.shape[2]) for f in feats_l]
-    win = window_shapes(level_shapes)
-    b, r = rois_l.shape[:2]
-    c = feats_l[0].shape[-1]
-    meta_l, geom_l = roi_window_meta(level_shapes, rois_l, strides)
-    meta_r, geom_r = roi_window_meta(level_shapes, rois_r, strides)
-    left = _sample_side(feats_l, meta_l, geom_l, win, PK)
-    right = _sample_side(feats_r, meta_r, geom_r, win, PK)
-    pool_l = left.reshape(b, r, P, 2, P, 2, c).mean(dim=(3, 5))
-    pool_r = right.reshape(b, r, P, 2, P, 2, c).mean(dim=(3, 5))
-    ok_l = meta_l[..., 3:4, None] > 0
-    ok_r = meta_r[..., 3:4, None] > 0
-    zero = torch.zeros((), dtype=torch.float32, device=left.device)
-    return torch.cat([
-        torch.where(ok_l, left.reshape(b, r, PK * PK, c), zero),
-        torch.where(ok_l, pool_l.reshape(b, r, P * P, c), zero),
-        torch.where(ok_r, pool_r.reshape(b, r, P * P, c), zero)], dim=2)
 
 
 def packed_bwd_contributions(g_packed, rois_l, rois_r, level_shapes,
@@ -228,6 +330,76 @@ def stereo_roi_align_packed_bwd_ref(g_packed, rois_l, rois_r, level_shapes,
     return grads[0], grads[1]
 
 
+def pack_atlas(feats):
+    """Row-concatenate the levels ``[B, H_l, W_l, C]`` of one side, widths
+    zero-padded to the widest level, plus ``ATLAS_WIN[0]`` zero rows (the
+    TPU kernel's window runway): ``(atlas [B, sum H_l + 48, W_max, C],
+    row offset of each level)``."""
+    wmax = max(f.shape[2] for f in feats)
+    b, c = feats[0].shape[0], feats[0].shape[-1]
+    rows = [F.pad(f, (0, 0, 0, wmax - f.shape[2])) for f in feats]
+    rows.append(feats[0].new_zeros((b, ATLAS_WIN[0], wmax, c)))
+    offsets = [sum(f.shape[1] for f in feats[:i]) for i in range(len(feats))]
+    return torch.cat(rows, dim=1), offsets
+
+
+def atlas_meta(level_shapes, rois: torch.Tensor, strides: Sequence[int]):
+    """K4's metadata: meta int32 ``[..., 4]`` (atlas y0, x0, valid, 0) and
+    geom float32 ``[..., 6]`` (y1, x1, bin_h, bin_w, clamp_y, clamp_x): the
+    window of :func:`roi_window_meta` moved to the level's atlas rows, and
+    as clamp bounds the last row and column of the level's window."""
+    meta, geom = roi_window_meta(level_shapes, rois, strides)
+    offsets = [sum(h for h, _ in level_shapes[:i])
+               for i in range(len(level_shapes))]
+    table = torch.tensor(
+        [[off, wh - 1, ww - 1] for off, (wh, ww)
+         in zip(offsets, window_shapes(level_shapes))],
+        dtype=torch.float32, device=rois.device)[meta[..., 0].long()]
+    meta_a = torch.stack([meta[..., 1] + table[..., 0].int(), meta[..., 2],
+                          meta[..., 3], torch.zeros_like(meta[..., 3])],
+                         dim=-1)
+    return meta_a.contiguous(), torch.cat([geom, table[..., 1:]],
+                                          dim=-1).contiguous()
+
+
+def _atlas_taps(meta, geom, n: int):
+    grid = torch.arange(n, dtype=torch.float32, device=meta.device) + 0.5
+    y_lo, y_hi, fy = _axis_taps(geom[..., 0:1], geom[..., 2:3],
+                               meta[..., 0:1].float(), geom[..., 4:5], grid)
+    x_lo, x_hi, fx = _axis_taps(geom[..., 1:2], geom[..., 3:4],
+                               meta[..., 1:2].float(), geom[..., 5:6], grid)
+    return y_lo, y_hi, x_lo, x_hi, fy, fx
+
+
+def stereo_roi_align_atlas_ref(feats_l, feats_r, rois_l, rois_r, strides):
+    """Plain PyTorch version of K4: ``(out7l [B, R, 7, 7, C], out7r,
+    out14l [B, R, 14, 14, C])`` float32, sampled from the packed atlases
+    with the per-roi clamp bounds."""
+    level_shapes = [(f.shape[1], f.shape[2]) for f in feats_l]
+    b, r = rois_l.shape[:2]
+    outs = []
+    for feats, rois in ((feats_l, rois_l), (feats_r, rois_r)):
+        atlas, _ = pack_atlas(list(feats))
+        ah, aw, c = atlas.shape[1:]
+        flat = atlas.reshape(-1, c)
+        meta, geom = atlas_meta(level_shapes, rois, strides)
+        base = (torch.arange(b, device=rois.device) * (ah * aw))[
+            :, None, None, None]
+
+        def tap(rows, cols):
+            idx = base + rows.long()[..., :, None] * aw + \
+                cols.long()[..., None, :]
+            return flat[idx].float()
+        samples = _bilinear(tap, *_atlas_taps(meta, geom, PK))
+        samples = torch.where(meta[..., 2, None, None, None] > 0, samples,
+                              torch.zeros((), device=samples.device))
+        outs.append(samples)
+    left, right = outs
+    c = left.shape[-1]
+    pool = [x.reshape(b, r, P, 2, P, 2, c).mean(dim=(3, 5)) for x in outs]
+    return pool[0], pool[1], left
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels.
 # ---------------------------------------------------------------------------
@@ -241,77 +413,47 @@ def _check_rois(rois_l, rois_r, b, r):
             raise ValueError("left and right rois must share a device")
 
 
-class _CudaKernel:
-    """ctypes binding of one C entry of a ``csrc/`` source, built at first
-    use.  ``launches`` counts kernel launches; it grows in ``__call__``
-    only, right after a launch that returned no error."""
-
-    source = ""
-    symbol = ""
-    argtypes: list = []
-
-    def __init__(self):
-        self.launches = 0
-        self.build_info = None
-        self._fn = None
-
-    def load(self):
-        if self._fn is None:
-            from stereo_rcnn_tpu_torch.ops.cuda_build import load_library
-            lib, self.build_info = load_library(self.source)
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
-
-    def _launched(self, err: int) -> None:
-        if err != 0:
-            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
-                               f"{err}")
-        self.launches += 1
+def _check_pyramids(feats_l, feats_r, rois_l, rois_r):
+    """``(dtype, B, R, C)`` of two 4-level pyramids the kernels take."""
+    if len(feats_l) != 4 or len(feats_r) != 4:
+        raise ValueError("the kernel takes exactly 4 levels (P2..P5) per "
+                         "side")
+    b, r = rois_l.shape[:2]
+    dtype, c = check_levels(feats_l, rois_l.device, b)
+    if (check_levels(feats_r, rois_l.device, b) != (dtype, c) or
+            any(f_l.shape != f_r.shape for f_l, f_r in zip(feats_l, feats_r))):
+        raise ValueError("left and right pyramids differ in shape or dtype")
+    _check_rois(rois_l, rois_r, b, r)
+    return dtype, b, r, c
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-class StereoRoIAlignKernel(_CudaKernel):
-    """K1: ``stereo_roi_align_fwd`` (the forward)."""
+class StereoRoIAlignKernel(CudaKernel):
+    """K1: ``stereo_roi_align_fwd`` (the forward), in every hat mode;
+    ``launches_by_hat`` counts the launches of each mode."""
 
     source = "stereo_roi_align.cu"
     symbol = "stereo_roi_align_fwd"
-    argtypes = [_P] * 9 + [_I] * 4 + [_P]
+    argtypes = [_P] * 9 + [_I] * 5 + [_P]
 
-    def __call__(self, feats_l, feats_r, rois_l, rois_r,
-                 strides) -> torch.Tensor:
+    def __init__(self):
+        super().__init__()
+        self.reset_counts()
+
+    def reset_counts(self) -> None:
+        super().reset_counts()
+        self.launches_by_hat = dict.fromkeys(HAT_MODES, 0)
+
+    def __call__(self, feats_l, feats_r, rois_l, rois_r, strides,
+                 hat: str = "f32") -> torch.Tensor:
+        mode = HAT_MODES[hat]       # KeyError for an unknown mode, as JAX's
         fn = self.load()
         feats_l, feats_r = list(feats_l), list(feats_r)
+        dtype, b, r, c = _check_pyramids(feats_l, feats_r, rois_l, rois_r)
         dev = rois_l.device
-        if len(feats_l) != 4 or len(feats_r) != 4:
-            raise ValueError("the kernel takes exactly 4 levels (P2..P5) "
-                             "per side")
-        dtype = feats_l[0].dtype
-        if dtype not in (torch.bfloat16, torch.float32):
-            raise TypeError(f"features must be bfloat16 or float32, "
-                            f"got {dtype}")
-        b, r = rois_l.shape[:2]
-        c = feats_l[0].shape[-1]
-        if c % 2:
-            raise ValueError(f"channel count must be even, got {c}")
-        for f_l, f_r in zip(feats_l, feats_r):
-            for f in (f_l, f_r):
-                if f.device != dev or f.dtype != dtype:
-                    raise ValueError("all levels must share the rois' "
-                                     "device and one dtype")
-                if f.dim() != 4 or f.shape[0] != b or f.shape[3] != c:
-                    raise ValueError(f"level shape {tuple(f.shape)} is not "
-                                     f"[{b}, H, W, {c}]")
-                if not f.is_contiguous():
-                    raise ValueError("levels must be contiguous NHWC")
-            if f_l.shape != f_r.shape:
-                raise ValueError("left and right pyramids differ in shape")
-        _check_rois(rois_l, rois_r, b, r)
         level_shapes = [(f.shape[1], f.shape[2]) for f in feats_l]
         meta_l, geom_l = roi_window_meta(level_shapes, rois_l, strides)
         meta_r, geom_r = roi_window_meta(level_shapes, rois_r, strides)
@@ -327,12 +469,13 @@ class StereoRoIAlignKernel(_CudaKernel):
                             for v in hw]),
                      meta_l.data_ptr(), geom_l.data_ptr(),
                      meta_r.data_ptr(), geom_r.data_ptr(), out.data_ptr(),
-                     b, r, c, int(dtype == torch.bfloat16), stream)
+                     b, r, c, int(dtype == torch.bfloat16), mode, stream)
         self._launched(err)
+        self.launches_by_hat[hat] += 1
         return out
 
 
-class StereoRoIAlignBwdKernel(_CudaKernel):
+class StereoRoIAlignBwdKernel(CudaKernel):
     """K2: ``stereo_roi_align_bwd`` (the backward)."""
 
     source = "stereo_roi_align_bwd.cu"
@@ -379,63 +522,130 @@ class StereoRoIAlignBwdKernel(_CudaKernel):
         return d_l, d_r
 
 
+class StereoRoIAlignAtlasKernel(CudaKernel):
+    """K4: ``stereo_roi_align_atlas_fwd`` over packed atlases."""
+
+    source = "stereo_roi_align_atlas.cu"
+    symbol = "stereo_roi_align_atlas_fwd"
+    argtypes = [_P] * 9 + [_I] * 6 + [_P]
+
+    def __call__(self, atlas_l, atlas_r, level_shapes, rois_l, rois_r,
+                 strides):
+        """``(out7l, out7r, out14l)`` float32 for the atlases of
+        :func:`pack_atlas` (``[B, sum H_l + 48, W_max, C]`` per side) of
+        levels shaped ``level_shapes``."""
+        fn = self.load()
+        dev = rois_l.device
+        b, r = rois_l.shape[:2]
+        dtype = atlas_l.dtype
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"atlases must be bfloat16 or float32, got "
+                            f"{dtype}")
+        ah, aw, c = atlas_l.shape[1:]
+        if (atlas_l.shape != atlas_r.shape or atlas_r.dtype != dtype or
+                atlas_l.shape[0] != b or
+                ah != sum(h for h, _ in level_shapes) + ATLAS_WIN[0] or
+                aw != max(w for _, w in level_shapes)):
+            raise ValueError(f"atlases {tuple(atlas_l.shape)}, "
+                             f"{tuple(atlas_r.shape)} do not pack levels "
+                             f"{level_shapes} of {b} images")
+        for a in (atlas_l, atlas_r):
+            if a.device != dev or not a.is_contiguous():
+                raise ValueError("atlases must be contiguous, on the rois' "
+                                 "device")
+        if c % 2:
+            raise ValueError(f"channel count must be even, got {c}")
+        _check_rois(rois_l, rois_r, b, r)
+        meta_l, geom_l = atlas_meta(level_shapes, rois_l, strides)
+        meta_r, geom_r = atlas_meta(level_shapes, rois_r, strides)
+        out14l = torch.empty((b, r, PK, PK, c), dtype=torch.float32,
+                             device=dev)
+        out7l = torch.empty((b, r, P, P, c), dtype=torch.float32, device=dev)
+        out7r = torch.empty_like(out7l)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(atlas_l.data_ptr(), atlas_r.data_ptr(),
+                     meta_l.data_ptr(), geom_l.data_ptr(),
+                     meta_r.data_ptr(), geom_r.data_ptr(),
+                     out14l.data_ptr(), out7l.data_ptr(), out7r.data_ptr(),
+                     b, r, ah, aw, c, int(dtype == torch.bfloat16), stream)
+        self._launched(err)
+        return out7l, out7r, out14l
+
+
 stereo_roi_align_kernel = StereoRoIAlignKernel()
 stereo_roi_align_bwd_kernel = StereoRoIAlignBwdKernel()
-
-
-def _on(dev: torch.device, name: str, cuda_fn, cpu_fn):
-    """CUDA tensors take the kernel, CPU tensors the plain version; any
-    other device raises."""
-    if dev.type == "cuda":
-        return cuda_fn
-    if dev.type == "cpu":
-        return cpu_fn
-    raise RuntimeError(f"{name}: no implementation for device {dev}")
+stereo_roi_align_atlas_kernel = StereoRoIAlignAtlasKernel()
 
 
 def stereo_roi_align_packed_bwd(g_packed, rois_l, rois_r, level_shapes,
                                 strides):
     """The gradient of :func:`stereo_roi_align_packed` w.r.t. the levels,
     float32 (K2 on CUDA tensors, the plain version on CPU tensors)."""
-    fn = _on(g_packed.device, "stereo_roi_align_packed_bwd",
-             stereo_roi_align_bwd_kernel, stereo_roi_align_packed_bwd_ref)
+    fn = on_device(g_packed.device, "stereo_roi_align_packed_bwd",
+                   stereo_roi_align_bwd_kernel,
+                   stereo_roi_align_packed_bwd_ref)
     return fn(g_packed.float().contiguous(), rois_l, rois_r, level_shapes,
               strides)
 
 
 class _StereoRoIAlign(torch.autograd.Function):
-    """Forward K1, backward K2; gradients reach the levels only (cast to
+    """Forward K1 (in the given hat mode), backward K2 (the exact f32
+    transpose whatever the hat); gradients reach the levels only (cast to
     their dtype), not the rois, as in the JAX package's custom VJP."""
 
     @staticmethod
-    def forward(ctx, rois_l, rois_r, strides, *levels):
+    def forward(ctx, rois_l, rois_r, strides, hat, *levels):
         n = len(levels) // 2
         feats_l, feats_r = levels[:n], levels[n:]
         ctx.save_for_backward(rois_l, rois_r)
         ctx.strides = strides
         ctx.level_shapes = [(f.shape[1], f.shape[2]) for f in feats_l]
         ctx.dtypes = [f.dtype for f in levels]
-        fn = _on(rois_l.device, "stereo_roi_align_packed",
-                 stereo_roi_align_kernel, stereo_roi_align_packed_ref)
-        return fn(feats_l, feats_r, rois_l, rois_r, strides)
+        fn = on_device(rois_l.device, "stereo_roi_align_packed",
+                       stereo_roi_align_kernel, stereo_roi_align_packed_ref)
+        return fn(feats_l, feats_r, rois_l, rois_r, strides, hat)
 
     @staticmethod
     def backward(ctx, g_packed):
         rois_l, rois_r = ctx.saved_tensors
         d_l, d_r = stereo_roi_align_packed_bwd(
             g_packed, rois_l, rois_r, ctx.level_shapes, ctx.strides)
-        return (None, None, None,
+        return (None, None, None, None,
                 *[d.to(dt) for d, dt in zip(d_l + d_r, ctx.dtypes)])
 
 
-def stereo_roi_align_packed(feats_l, feats_r, rois_l, rois_r,
-                            strides) -> torch.Tensor:
+def stereo_roi_align_packed(feats_l, feats_r, rois_l, rois_r, strides,
+                            hat: str = "f32") -> torch.Tensor:
     """Fused stereo RoIAlign, ``[B, R, 294, C]`` float32, differentiable
-    w.r.t. the levels.
+    w.r.t. the levels; ``hat`` is one of :data:`HAT_MODES` (others raise
+    ``KeyError``, as the JAX package's lookup does).
 
     CUDA tensors launch the kernels (or raise); CPU tensors take
     :func:`stereo_roi_align_packed_ref` and
     :func:`stereo_roi_align_packed_bwd_ref`.  Any other device raises.
     """
-    return _StereoRoIAlign.apply(rois_l, rois_r, tuple(strides),
+    return _StereoRoIAlign.apply(rois_l, rois_r, tuple(strides), hat,
                                  *feats_l, *feats_r)
+
+
+def stereo_roi_align_atlas(feats_l, feats_r, rois_l, rois_r, strides):
+    """K4: the fused stereo RoIAlign over packed level atlases, batched
+    over images.  Levels ``[B, H_l, W_l, C]`` (bf16 or f32), rois
+    ``[B, R, 4]``; returns ``(out7l [B, R, 7, 7, C], out7r,
+    out14l [B, R, 14, 14, C])`` float32, the JAX entry's outputs per image.
+    Not differentiable.  CUDA tensors pack the atlases (a torch copy) and
+    launch the kernel once for all images, or raise; CPU tensors take
+    :func:`stereo_roi_align_atlas_ref`."""
+    fn = on_device(rois_l.device, "stereo_roi_align_atlas", _atlas_on_card,
+                   stereo_roi_align_atlas_ref)
+    return fn(list(feats_l), list(feats_r), rois_l, rois_r, strides)
+
+
+def _atlas_on_card(feats_l, feats_r, rois_l, rois_r, strides):
+    """Pack both atlases, then one K4 launch for all images."""
+    _check_pyramids(feats_l, feats_r, rois_l, rois_r)
+    level_shapes = [(f.shape[1], f.shape[2]) for f in feats_l]
+    return stereo_roi_align_atlas_kernel(
+        pack_atlas(feats_l)[0], pack_atlas(feats_r)[0], level_shapes, rois_l,
+        rois_r, strides)

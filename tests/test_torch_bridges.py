@@ -175,20 +175,64 @@ def test_from_jax_maps_training_state(norm):
             "backbone_net.RCNN_layer1.0.bn3.scale"}
 
 
+def _frozen_pallas_cfg(section, field, value):
+    base = t_config.tiny_test_config()
+    cfg = dataclasses.replace(
+        base, backbone=dataclasses.replace(base.backbone, norm="frozen"),
+        rcnn=dataclasses.replace(base.rcnn, roi_align_impl="pallas"))
+    return dataclasses.replace(cfg, **{section: dataclasses.replace(
+        getattr(cfg, section), **{field: value})})
+
+
 @pytest.mark.parametrize("section, field, value", [
-    ("rcnn", "roi_align_impl", "xla"),
-    ("rcnn", "roi_align_hat", "kron_bf16"),
-    ("rcnn", "roi_align_hat", "kron_hilo"),
     ("backbone", "fpn_upsample", "nearest"),
 ])
 def test_unported_options_raise(section, field, value):
     """Options the port does not implement raise instead of running
     something else."""
-    base = t_config.tiny_test_config()
-    cfg = dataclasses.replace(
-        base, backbone=dataclasses.replace(base.backbone, norm="frozen"),
-        rcnn=dataclasses.replace(base.rcnn, roi_align_impl="pallas"))
-    cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
-        getattr(cfg, section), **{field: value})})
     with pytest.raises(NotImplementedError, match=field):
-        StereoRCNN(cfg)
+        StereoRCNN(_frozen_pallas_cfg(section, field, value))
+
+
+@pytest.mark.parametrize("field, value, expect", [
+    ("roi_align_impl", "xla", ("multilevel_roi_align", None)),
+    ("roi_align_hat", "kron_bf16", ("stereo_roi_align_packed_ref",
+                                    "kron_bf16")),
+    ("roi_align_hat", "kron_hilo", ("stereo_roi_align_packed_ref",
+                                    "kron_hilo")),
+])
+def test_roi_align_options_build_and_dispatch(monkeypatch, field, value,
+                                              expect):
+    """The RoIAlign options build, and ``roi_features`` on CPU tensors
+    calls the implementation they name: the atlas gather three times, or
+    K1's plain version with that hat; nothing else."""
+    from stereo_rcnn_tpu_torch.models import detector as t_det
+    from stereo_rcnn_tpu_torch.ops import stereo_roi_align as t_sra
+    cfg = _frozen_pallas_cfg("rcnn", field, value)
+    model = StereoRCNN(cfg)
+    calls = []
+
+    def spy(module, name):
+        fn = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            hat = args[5] if len(args) > 5 else kwargs.get("hat")
+            calls.append((name, hat))
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(module, name, wrapper)
+
+    spy(t_det, "multilevel_roi_align")
+    spy(t_sra, "stereo_roi_align_packed_ref")
+    rng = np.random.RandomState(0)
+    h, w, c = cfg.data.image_h, cfg.data.image_w, cfg.backbone.fpn_dim
+    feats = [torch.from_numpy(rng.randn(1, h // s, w // s, c)
+                              .astype(np.float32)) for s in (4, 8, 16, 32)]
+    rois = torch.tensor([[[10.0, 12.0, 90.0, 60.0], [40.0, 8.0, 200.0,
+                                                     100.0]]])
+    out = t_det.roi_features(model, feats, feats, rois, rois - 5.0)
+    p, pk = cfg.rcnn.pooling_size, cfg.rcnn.kpt_pool_size
+    assert out["concat"].shape == (2, p, p, 2 * c)
+    assert out["left_kpt"].shape == (2, pk, pk, c)
+    assert calls == [expect] * (3 if value == "xla" else 1)
+    rows = pk * pk if value == "xla" else pk * pk + 2 * p * p
+    assert out["left_kpt_rows"].shape == (2, rows, c)

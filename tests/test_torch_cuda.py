@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-Every test here carries the ``cuda`` marker and skips without a CUDA
-device.  The file imports no JAX, so it runs on a machine without it:
+K1 in every sampling-weight mode, its backward K2, the windowed RoIAlign
+K3 and the atlas variant K4.  Every test here carries the ``cuda`` marker
+and skips without a CUDA device.  The file imports no JAX, so it runs on
+a machine without it:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
@@ -96,3 +98,68 @@ def test_k2_cuda_kernel_matches_plain_backward(dtype):
         assert t.grad.dtype == dtype
         torch.testing.assert_close(t.grad.float(), ref.to(dtype).float(),
                                    atol=tol * ref.abs().max().item(), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hat", ["kron_bf16", "kron_hilo"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_kron_modes_match_plain(hat, dtype):
+    """K1 in a kron mode against its plain version (the literal dense kron
+    matrix).  1e-5: both compute the same rounded weights, positions
+    rounded once; only the float32 sums' order differs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fl, fr, rl, rr = _k1_inputs(256)
+    dev = torch.device("cuda")
+    tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
+    tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
+    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
+    before = t_sra.stereo_roi_align_kernel.launches
+    out = t_sra.stereo_roi_align_packed(tl, tr, rl_t, rr_t, STRIDES, hat)
+    torch.cuda.synchronize()
+    assert t_sra.stereo_roi_align_kernel.launches == before + 1
+    ref = t_sra.stereo_roi_align_packed_ref(tl, tr, rl_t, rr_t, STRIDES, hat)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p, s", [(7, 2), (14, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_cuda_kernel_matches_plain(p, s, dtype):
+    """K3 against its plain version, batched and unbatched.  1e-4, as K1:
+    the two differ only in fused multiply-adds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from stereo_rcnn_tpu_torch.ops import roi_align_window as t_win
+    fl, _, rl, _ = _k1_inputs(256)
+    dev = torch.device("cuda")
+    feats = [torch.from_numpy(f).to(dev, dtype) for f in fl]
+    rois = torch.from_numpy(rl).to(dev)
+    for f_, r_ in ((feats, rois), ([f[1] for f in feats], rois[1])):
+        before = t_win.roi_align_window_kernel.launches
+        out = t_win.multilevel_roi_align_window(f_, r_, STRIDES, p, s)
+        torch.cuda.synchronize()
+        assert t_win.roi_align_window_kernel.launches == before + 1
+        ref = t_win.multilevel_roi_align_window_ref(f_, r_, STRIDES, p, s)
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_cuda_kernel_matches_plain(dtype):
+    """K4 against its plain version, one launch for both images.  1e-4, as
+    K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fl, fr, rl, rr = _k1_inputs(256)
+    dev = torch.device("cuda")
+    tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
+    tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
+    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
+    before = t_sra.stereo_roi_align_atlas_kernel.launches
+    out = t_sra.stereo_roi_align_atlas(tl, tr, rl_t, rr_t, STRIDES)
+    torch.cuda.synchronize()
+    assert t_sra.stereo_roi_align_atlas_kernel.launches == before + 1
+    ref = t_sra.stereo_roi_align_atlas_ref(tl, tr, rl_t, rr_t, STRIDES)
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, atol=1e-4, rtol=0)

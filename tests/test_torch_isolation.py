@@ -1,9 +1,11 @@
 """The port runs where JAX cannot be imported.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
-``flax``, ``optax``, ``orbax`` and ``yaml``, imports the port, builds the
-tiny frozen-BN config and runs ``make_full_pipeline`` once on the CPU,
-then one training step of the tiny GroupNorm config (``train/``,
+``flax``, ``optax``, ``orbax`` and ``yaml``, imports the port (the
+windowed RoIAlign and the ``bench_roialign`` tool included), builds the
+tiny frozen-BN config and runs ``make_full_pipeline`` on the CPU with the
+fused RoIAlign and with the atlas gather (``roi_align_impl="xla"``), then
+one training step of the tiny GroupNorm config (``train/``,
 ``data/kitti.py`` and the RoIAlign autograd Function), as the card's
 machine (which has no JAX) must.
 """
@@ -39,6 +41,8 @@ SCRIPT = textwrap.dedent("""
 
     import stereo_rcnn_tpu_torch as srt
     from stereo_rcnn_tpu_torch.convert import from_jax  # noqa: F401
+    from stereo_rcnn_tpu_torch.ops import roi_align_window  # noqa: F401
+    from stereo_rcnn_tpu_torch.tools import bench_roialign  # noqa: F401
 
     base = srt.tiny_test_config()
     cfg = dataclasses.replace(
@@ -47,12 +51,18 @@ SCRIPT = textwrap.dedent("""
         rcnn=dataclasses.replace(base.rcnn, roi_align_impl="pallas"))
     model = srt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     il, ir, calib = srt.synthetic_images(cfg, 1, seed=7, n_objects=2)
-    out = srt.make_full_pipeline(cfg, calib)(model, torch.from_numpy(il),
-                                              torch.from_numpy(ir))
     d = cfg.rcnn.max_detections
-    assert out.position.shape == (1, d, 3), out.position.shape
-    valid = out.det.valid.numpy()
-    assert np.isfinite(out.position.numpy()[valid]).all()
+    # The fused kernel's plain version, then the atlas gather (Config()'s
+    # own RoIAlign), on the same weights.
+    for impl in ("pallas", "xla"):
+        cfg_i = dataclasses.replace(cfg, rcnn=dataclasses.replace(
+            cfg.rcnn, roi_align_impl=impl))
+        model.cfg = cfg_i
+        out = srt.make_full_pipeline(cfg_i, calib)(
+            model, torch.from_numpy(il), torch.from_numpy(ir))
+        assert out.position.shape == (1, d, 3), out.position.shape
+        valid = out.det.valid.numpy()
+        assert np.isfinite(out.position.numpy()[valid]).all()
 
     from stereo_rcnn_tpu_torch.config import synthetic_fullres_config
     from stereo_rcnn_tpu_torch.data.synthetic import synthetic_batch

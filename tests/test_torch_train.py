@@ -54,11 +54,11 @@ RPN_BOX_SCALE = 0.01
 STEPS_PER_EPOCH = 10
 
 
-def _cfg(base, norm, remat=False):
+def _cfg(base, norm, remat=False, impl="pallas"):
     return dataclasses.replace(
         base, compute_dtype="float32",
         backbone=dataclasses.replace(base.backbone, norm=norm, remat=remat),
-        rcnn=dataclasses.replace(base.rcnn, roi_align_impl="pallas"))
+        rcnn=dataclasses.replace(base.rcnn, roi_align_impl=impl))
 
 
 def jax_uniforms(key, b, a, n) -> Uniforms:
@@ -91,10 +91,10 @@ def _jax_state(cfg_j):
                                       opt_state=tx.init(params_j))
 
 
-def _one_step(norm):
+def _one_step(norm, impl="pallas"):
     """One step of both packages from the same JAX state and batch."""
-    cfg_j = _cfg(j_tiny(), norm)
-    cfg = _cfg(tiny_test_config(), norm)
+    cfg_j = _cfg(j_tiny(), norm, impl=impl)
+    cfg = _cfg(tiny_test_config(), norm, impl=impl)
     params, state_j = _jax_state(cfg_j)
     il, ir, gt = _batch_np(cfg_j)
     batch_j = j_train.Batch(jnp.asarray(il), jnp.asarray(ir),
@@ -197,6 +197,20 @@ def test_affine_step_matches_jax():
                  "rcnn_head.RCNN_fc6.weight"):
         _check_update(step, name)
     assert not step["before"]["backbone_net.RCNN_layer4.0.bn3.scale"].any()
+
+
+@pytest.mark.parametrize("impl", ["xla"])
+def test_train_step_roi_align_impl_matches_jax(impl):
+    """One GroupNorm step with ``rcnn.roi_align_impl="xla"`` (the atlas
+    gather, ``Config()``'s RoIAlign and the one ``configs/res101.yml``
+    trains with), its gradient autograd's scatter-add as XLA's: the
+    metrics and the fc6, layer4 and ``uncert`` updates, to the tolerances
+    above."""
+    step = _one_step("group", impl)
+    _check_metrics(step)
+    for name in ("rcnn_head.RCNN_fc6.weight",
+                 "backbone_net.RCNN_layer4.0.conv2.weight", "uncert"):
+        _check_update(step, name)
 
 
 def test_param_labels():
