@@ -1,9 +1,12 @@
 // Fused stereo RoIAlign forward for Hopper (sm_90a).
 //
 // Replaces stereo_rcnn_tpu/ops/roi_align_pallas.py::_stereo_kernel with
-// packed_out="raw", in the three sampling-weight modes of _HAT_MODES
-// (rcnn.roi_align_hat): "f32", "kron_bf16" and "kron_hilo".  For one
-// (image, roi) it writes one packed block of 294 rows x C float32:
+// packed_out="raw", in the five sampling-weight modes of _sample_grid: the
+// three of _HAT_MODES (rcnn.roi_align_hat), "f32", "kron_bf16" and
+// "kron_hilo", and the two that the JAX package reaches only through
+// stereo_roi_align_pallas(hat_dtype=...) (its tools/bench_roialign.py):
+// "bf16" (hat_dtype=jnp.bfloat16) and "hilo".  For one (image, roi) it
+// writes one packed block of 294 rows x C float32:
 //   rows   0..195  left 14x14 bilinear samples at the bin centres (kpt rows)
 //   rows 196..244  left 7x7 pool: the 2x2 mean of those samples
 //   rows 245..293  right 7x7 pool at sampling ratio 2 on the right features
@@ -35,6 +38,28 @@
 // roundings in the JAX order, 1 - |cell - p| with __fsub_rn, so no
 // contraction the compiler chooses moves a weight by an ulp and flips its
 // bf16 rounding: the weights equal the plain version's bit for bit.
+//
+// Two-matmul modes (_sample_grid's other branch, roi_align_pallas.py
+// :311-356): the hat rows wy [n, wh] and wx [n, ww] are contracted one after
+// the other, y first, with a rounding in between.  On the right (avg = 2)
+// a bin's hat per distinct row (column) is the MEAN of its two samples'
+// hats, (h0 + h1) * 0.5 in float32, as jnp.mean takes it, before any
+// rounding.  "bf16": the hats are rounded to bf16; for each column x that
+// an x-hat touches, t_x = sum over the touched rows of wy * window[row, x]
+// in float32 (ascending rows, fused multiply-adds), rounded to bf16; then
+// out = sum over those columns of wx * t_x in float32.  "hilo": the y-hats
+// are split into bf16 hi + lo and the two y-passes summed in float32 (t_x =
+// hi-pass + lo-pass); t_x and the x-hats are split too, and the products
+// hi x hi, hi x lo and lo x hi are three separate float32 sums added in
+// that order (lo x lo dropped), as the JAX code adds its three dots.  A hat
+// is zero away from its taps, so each contraction runs over the touched
+// cells only: 2 rows and 2 columns per left sample, the up to 4 distinct
+// rows and columns per right bin (a repeated cell carries weight 0).  With
+// bf16 levels every product is exact (bf16 x bf16 fits float32), so the
+// left side equals any implementation's sums bit for bit; the right side's
+// 4-term sums can round differently in another order, and a bf16
+// intermediate one float32 rounding from a bf16 boundary then moves by a
+// bf16 step.
 //
 // In every mode a sample's position y1 + (k + 0.5) * bin is rounded once
 // (__fmaf_rn), as XLA fuses it into one multiply-add where the JAX kernel is
@@ -71,6 +96,8 @@ constexpr int kRows = kKpt + 2 * kP * kP;    // 294
 constexpr int kF32 = 0;                      // _HAT_MODES order
 constexpr int kKronBf16 = 1;
 constexpr int kKronHilo = 2;
+constexpr int kBf16 = 3;                     // the two-matmul modes
+constexpr int kHilo = 4;
 
 struct Pyramids {
   const void* left[kLevels];
@@ -82,20 +109,27 @@ struct Pyramids {
 };
 
 // Bilinear taps of one axis of one side: absolute level cells and weights
-// (f32: 1 - frac and frac; kron modes: the two literal hats).
+// (f32: 1 - frac and frac; kron modes: the two literal hats; two-matmul
+// modes: the two hats rounded to bf16, or their bf16 hi parts with the lo
+// parts in wlo2 / whi2).
 struct Taps {
   int lo[kPk];
   int hi[kPk];
   float wlo[kPk];
   float whi[kPk];
+  float wlo2[kPk];
+  float whi2[kPk];
 };
 
-// Kron modes, right side, one axis: per 7x7 bin the 4 candidate cells of
-// its two samples (absolute, clamped into the window) and their summed hats,
-// zero for a cell that repeats an earlier one.
+// Right side, one axis, all modes but f32: per 7x7 bin the 4 candidate
+// cells of its two samples (absolute, clamped into the window) and their
+// hats, zero for a cell that repeats an earlier one.  Kron modes: the hats
+// summed; two-matmul modes: their mean, rounded to bf16 (or its hi part,
+// with the lo part in w2).
 struct BinTaps {
   int cell[kP][4];
   float w[kP][4];
+  float w2[kP][4];
 };
 
 __device__ __forceinline__ float2 load2(const float* p) {
@@ -125,13 +159,31 @@ __device__ __forceinline__ float hat(int cell, float p) {
                                fabsf(__fsub_rn(static_cast<float>(cell), p))));
 }
 
+__device__ __forceinline__ float round_bf16(float w) {
+  return __bfloat162float(__float2bfloat16_rn(w));
+}
+
+// The bf16 hi and lo parts of w (roi_align_pallas.py::_hi_lo).
+__device__ __forceinline__ float2 hi_lo(float w) {
+  const float hi = round_bf16(w);
+  return make_float2(hi, round_bf16(__fsub_rn(w, hi)));
+}
+
 // A combined weight as the kron modes feed it to the matrix unit.
 template <int kMode>
 __device__ __forceinline__ float quantize(float w) {
-  const float hi = __bfloat162float(__float2bfloat16_rn(w));
-  if (kMode == kKronBf16) return hi;
-  const float lo = __bfloat162float(__float2bfloat16_rn(__fsub_rn(w, hi)));
-  return __fadd_rn(hi, lo);
+  const float2 h = hi_lo(w);
+  return kMode == kKronBf16 ? h.x : __fadd_rn(h.x, h.y);
+}
+
+// A two-matmul mode's hat as it reaches the matrix unit: rounded to bf16
+// ("bf16", *w2 unused) or split into hi (returned) and lo (*w2) ("hilo").
+template <int kMode>
+__device__ __forceinline__ float split_hat(float w, float* w2) {
+  if (kMode == kBf16) return round_bf16(w);
+  const float2 h = hi_lo(w);
+  *w2 = h.y;
+  return h.x;
 }
 
 // One f32 sample: y first, then x (the order of the TPU kernel's two hat
@@ -175,6 +227,52 @@ __device__ __forceinline__ float2 sample_kron(const T* img, int w, int c,
       wk[0] * v00.y + wk[1] * v01.y + wk[2] * v10.y + wk[3] * v11.y);
 }
 
+__device__ __forceinline__ float2 fma2(float w, float2 v, float2 acc) {
+  return make_float2(__fmaf_rn(w, v.x, acc.x), __fmaf_rn(w, v.y, acc.y));
+}
+
+__device__ __forceinline__ float2 round_bf16(float2 v) {
+  return make_float2(round_bf16(v.x), round_bf16(v.y));
+}
+
+// One output of a two-matmul mode from kN touched rows and columns (2 per
+// left sample, 4 per right bin): for each column the y-pass over the rows,
+// rounded to bf16 ("bf16") or split into hi + lo ("hilo"), then the x-pass.
+// wy / wx are the rounded hats (hilo: hi parts; wy2 / wx2 the lo parts).
+template <int kMode, int kN, typename T>
+__device__ __forceinline__ float2 sample_2mm(
+    const T* img, int w, int c, int ch, const int (&rows)[kN],
+    const float (&wy)[kN], const float (&wy2)[kN], const int (&cols)[kN],
+    const float (&wx)[kN], const float (&wx2)[kN]) {
+  const float2 zero = make_float2(0.0f, 0.0f);
+  float2 hh = zero, hl = zero, lh = zero;    // hilo: the three x-passes
+#pragma unroll
+  for (int l = 0; l < kN; ++l) {
+    float2 a = zero, b = zero;               // y-passes (hilo: hi and lo)
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const float2 v =
+          load2(img + (static_cast<size_t>(rows[k]) * w + cols[l]) * c + ch);
+      a = fma2(wy[k], v, a);
+      if (kMode == kHilo) b = fma2(wy2[k], v, b);
+    }
+    if (kMode == kBf16) {
+      hh = fma2(wx[l], round_bf16(a), hh);
+    } else {
+      const float2 t = make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+      const float2 t_hi = round_bf16(t);
+      const float2 t_lo = round_bf16(make_float2(__fsub_rn(t.x, t_hi.x),
+                                                 __fsub_rn(t.y, t_hi.y)));
+      hh = fma2(wx[l], t_hi, hh);
+      hl = fma2(wx[l], t_lo, hl);
+      lh = fma2(wx2[l], t_hi, lh);
+    }
+  }
+  if (kMode == kBf16) return hh;
+  return make_float2(__fadd_rn(__fadd_rn(hh.x, hl.x), lh.x),
+                     __fadd_rn(__fadd_rn(hh.y, hl.y), lh.y));
+}
+
 template <typename T, int kMode>
 __global__ void stereo_roi_align_kernel(Pyramids pyr,
                                         const int* __restrict__ meta_l,
@@ -183,17 +281,18 @@ __global__ void stereo_roi_align_kernel(Pyramids pyr,
                                         const float* __restrict__ geom_r,
                                         float* __restrict__ out, int n_rois,
                                         int c) {
-  constexpr bool kKron = kMode != kF32;
+  constexpr bool kKron = kMode == kKronBf16 || kMode == kKronHilo;
+  constexpr bool kTwoMM = kMode == kBf16 || kMode == kHilo;
   const int roi = blockIdx.x;                // b * n_rois + r
   const int b = roi / n_rois;
   __shared__ Taps taps[2][2];                // [side][y, x]
-  __shared__ BinTaps bins[2];                // kron right side, [y, x]
+  __shared__ BinTaps bins[2];                // right side but f32, [y, x]
   __shared__ float w_left[kKron ? kKpt : 1][4];
   __shared__ float w_right[kKron ? kP * kP : 1][16];
   __shared__ int s_level[2];
   __shared__ int s_valid[2];
 
-  // 2 sides x 2 axes x 14 positions; in the kron modes the right side's
+  // 2 sides x 2 axes x 14 positions; in all modes but f32 the right side's
   // entries are its 7 bins per axis instead.
   for (int t = threadIdx.x; t < 2 * 2 * kPk; t += blockDim.x) {
     const int side = t / (2 * kPk);
@@ -208,7 +307,7 @@ __global__ void stereo_roi_align_kernel(Pyramids pyr,
       s_level[side] = level;
       s_valid[side] = meta[3];
     }
-    if (kKron && side == 1) {
+    if (kMode != kF32 && side == 1) {
       if (i >= kP) continue;
       const float p0 = position(geom[axis], geom[2 + axis], 2 * i, win);
       const float p1 =
@@ -222,9 +321,13 @@ __global__ void stereo_roi_align_kernel(Pyramids pyr,
       BinTaps& bt = bins[axis];
       for (int k = 0; k < 4; ++k) {
         bt.cell[i][k] = origin + min(cells[k], win - 1);
-        bt.w[i][k] = repeat[k] ? 0.0f
-                               : __fadd_rn(hat(cells[k], p0),
-                                           hat(cells[k], p1));
+        const float sum = repeat[k] ? 0.0f
+                                    : __fadd_rn(hat(cells[k], p0),
+                                                hat(cells[k], p1));
+        // Two-matmul modes: the mean of the two hats (jnp.mean), rounded.
+        bt.w[i][k] = kTwoMM ? split_hat<kMode>(__fmul_rn(sum, 0.5f),
+                                               &bt.w2[i][k])
+                            : sum;
       }
       continue;
     }
@@ -237,6 +340,9 @@ __global__ void stereo_roi_align_kernel(Pyramids pyr,
     if (kKron) {
       tp.wlo[i] = hat(lo, pos);
       tp.whi[i] = hat(lo + 1, pos);
+    } else if (kTwoMM) {
+      tp.wlo[i] = split_hat<kMode>(hat(lo, pos), &tp.wlo2[i]);
+      tp.whi[i] = split_hat<kMode>(hat(lo + 1, pos), &tp.whi2[i]);
     } else {
       tp.whi[i] = pos - fl;
       tp.wlo[i] = 1.0f - (pos - fl);
@@ -283,7 +389,15 @@ __global__ void stereo_roi_align_kernel(Pyramids pyr,
           for (int dx = 0; dx < 2; ++dx) {
             const int i = 2 * py + dy, j = 2 * px + dx;
             float2 s = zero;
-            if (s_valid[0]) {
+            if (s_valid[0] && kTwoMM) {
+              const Taps& ty = taps[0][0];
+              const Taps& tx = taps[0][1];
+              s = sample_2mm<kMode, 2>(
+                  img_l, w_l, c, ch, {ty.lo[i], ty.hi[i]},
+                  {ty.wlo[i], ty.whi[i]}, {ty.wlo2[i], ty.whi2[i]},
+                  {tx.lo[j], tx.hi[j]}, {tx.wlo[j], tx.whi[j]},
+                  {tx.wlo2[j], tx.whi2[j]});
+            } else if (s_valid[0]) {
               s = kKron ? sample_kron(img_l, w_l, c, ch, taps[0][0],
                                       taps[0][1], i, j, w_left[i * kPk + j])
                         : sample(img_l, w_l, c, ch, taps[0][0], taps[0][1],
@@ -314,6 +428,17 @@ __global__ void stereo_roi_align_kernel(Pyramids pyr,
               acc.y += wk[k * 4 + l] * v.y;
             }
           }
+        } else if (s_valid[1] && kTwoMM) {
+          const BinTaps& by = bins[0];
+          const BinTaps& bx = bins[1];
+          acc = sample_2mm<kMode, 4>(
+              img_r, w_r, c, ch,
+              {by.cell[py][0], by.cell[py][1], by.cell[py][2], by.cell[py][3]},
+              {by.w[py][0], by.w[py][1], by.w[py][2], by.w[py][3]},
+              {by.w2[py][0], by.w2[py][1], by.w2[py][2], by.w2[py][3]},
+              {bx.cell[px][0], bx.cell[px][1], bx.cell[px][2], bx.cell[px][3]},
+              {bx.w[px][0], bx.w[px][1], bx.w[px][2], bx.w[px][3]},
+              {bx.w2[px][0], bx.w2[px][1], bx.w2[px][2], bx.w2[px][3]});
         } else if (s_valid[1]) {
           for (int dy = 0; dy < 2; ++dy) {
             for (int dx = 0; dx < 2; ++dx) {
@@ -344,6 +469,12 @@ void launch(int mode, int blocks, int threads, cudaStream_t s,
   } else if (mode == kKronHilo) {
     stereo_roi_align_kernel<T, kKronHilo><<<blocks, threads, 0, s>>>(
         pyr, meta_l, geom_l, meta_r, geom_r, out, n_rois, c);
+  } else if (mode == kBf16) {
+    stereo_roi_align_kernel<T, kBf16><<<blocks, threads, 0, s>>>(
+        pyr, meta_l, geom_l, meta_r, geom_r, out, n_rois, c);
+  } else if (mode == kHilo) {
+    stereo_roi_align_kernel<T, kHilo><<<blocks, threads, 0, s>>>(
+        pyr, meta_l, geom_l, meta_r, geom_r, out, n_rois, c);
   } else {
     stereo_roi_align_kernel<T, kF32><<<blocks, threads, 0, s>>>(
         pyr, meta_l, geom_l, meta_r, geom_r, out, n_rois, c);
@@ -356,8 +487,8 @@ void launch(int mode, int blocks, int threads, cudaStream_t s,
 // pointers to NHWC levels [B, h, w, C]; level_hw / win_hw: host arrays
 // (h0, w0, h1, w1, ...); meta_*: int32 [B, R, 4] (level, y0, x0, valid) and
 // geom_*: float32 [B, R, 4] (y1, x1, bin_h, bin_w) on the device; out:
-// float32 [B, R, 294, C]; mode: 0 f32, 1 kron_bf16, 2 kron_hilo.  C must be
-// even.  Returns cudaGetLastError().
+// float32 [B, R, 294, C]; mode: 0 f32, 1 kron_bf16, 2 kron_hilo, 3 bf16,
+// 4 hilo.  C must be even.  Returns cudaGetLastError().
 extern "C" int stereo_roi_align_fwd(const void* const* feats_l,
                                     const void* const* feats_r,
                                     const int* level_hw, const int* win_hw,

@@ -10,12 +10,17 @@ the forward returns one packed block of ``294 x C`` float32 rows: 196 left
 right 7x7 pool at sampling ratio 2.  ``hat`` selects the sampling weights
 (``rcnn.roi_align_hat``): ``"f32"`` exact, or the single combined kron
 weight per (sample, window cell) rounded to bf16 (``"kron_bf16"``) or
-split into bf16 hi + lo (``"kron_hilo"``).  Levels P2..P5 are NHWC
-``[B, H_l, W_l, C]``; rois are ``[B, R, 4]`` xyxy float32 in image
-coordinates.  The backward, whatever the hat, is the exact f32 transpose
-(as in the JAX package): it scatters a packed cotangent back through the
-f32 bilinear taps into float32 per-level gradients, cast to the features'
-dtype; the rois get no gradient.
+split into bf16 hi + lo (``"kron_hilo"``).  The kernel-level entry
+(:class:`StereoRoIAlignKernel` and the plain version) also takes the
+two-matmul modes ``"bf16"`` and ``"hilo"`` of :data:`TOOL_HAT_MODES`,
+which the JAX package reaches only through ``stereo_roi_align_pallas``;
+the public entry refuses them, as JAX's ``_HAT_MODES`` does.  Levels
+P2..P5 are NHWC ``[B, H_l, W_l, C]``; rois are ``[B, R, 4]`` xyxy float32
+in image coordinates.  The backward, whatever the hat, is the exact f32
+transpose (as in the JAX package): it scatters a packed cotangent back
+through the f32 bilinear taps into float32 per-level gradients, cast to
+the features' dtype; the rois get no gradient.  K2 sums each gradient
+cell in one fixed order (no atomics), so two launches give the same bits.
 
 K4 ports ``stereo_roi_align_pallas_atlas``: K1's f32 sampling over a
 row-packed level atlas (:func:`pack_atlas`, :func:`atlas_meta`), returning
@@ -44,10 +49,29 @@ STEREO_WIN = ((48, 64), (48, 64), (24, 64), (12, 40))
 PK = 14                     # kpt samples per axis
 P = 7                       # pooled bins per axis
 ROWS = PK * PK + 2 * P * P  # 294
-# Sampling-weight modes (roi_align_pallas.py _HAT_MODES) and the kernel's
-# code for each.
+# Sampling-weight modes of the public entry (roi_align_pallas.py
+# _HAT_MODES, rcnn.roi_align_hat) and the kernel's code for each.
 HAT_MODES = {"f32": 0, "kron_bf16": 1, "kron_hilo": 2}
+# The modes the kernel-level entry also takes: _sample_grid's two-matmul
+# branch with hat_dtype=jnp.bfloat16 ("bf16") and "hilo", which the JAX
+# package reaches only through stereo_roi_align_pallas (its
+# tools/bench_roialign.py), never through _HAT_MODES.
+TOOL_HAT_MODES = {**HAT_MODES, "bf16": 3, "hilo": 4}
 ATLAS_WIN = (48, 64)        # K4's window; its atlas adds ATLAS_WIN[0] rows
+
+_TABLES: dict = {}
+
+
+def device_table(rows, device) -> torch.Tensor:
+    """The float32 table ``rows`` on ``device``, made once per content and
+    device: a host-to-device copy of a Python list waits for the stream, so
+    the wrappers look their small per-level tables up here instead."""
+    key = (tuple(tuple(float(v) for v in row) for row in rows), str(device))
+    table = _TABLES.get(key)
+    if table is None:
+        table = _TABLES[key] = torch.tensor(rows, dtype=torch.float32,
+                                            device=device)
+    return table
 
 
 def window_shapes(level_shapes, windows=STEREO_WIN):
@@ -64,11 +88,10 @@ def roi_window_meta(level_shapes, rois: torch.Tensor,
     bins per axis and the per-level ``windows``; window origins are
     8-aligned on the W axis as in the TPU kernel."""
     levels = fpn_level_assignment(rois, len(level_shapes))
-    # One small table per call: each host-to-device copy syncs the stream.
-    table = torch.tensor(
+    table = device_table(
         [[1.0 / s, h, w, wh, ww] for s, (h, w), (wh, ww)
          in zip(strides, level_shapes, window_shapes(level_shapes, windows))],
-        dtype=torch.float32, device=rois.device)[levels]
+        rois.device)[levels]
     lvl_scale, lvl_h, lvl_w, win_h, win_w = table.unbind(-1)
     scaled = rois * lvl_scale[..., None]
     x1, y1 = scaled[..., 0], scaled[..., 1]
@@ -117,8 +140,7 @@ def _taps(meta, geom, win, n: int, s: int = 1):
     ``x_lo``/``x_hi`` and the fractions ``fy``/``fx``; samples are clamped
     to the window."""
     dev = meta.device
-    win_hw = torch.tensor(win, dtype=torch.float32,
-                          device=dev)[meta[..., 0].long()]
+    win_hw = device_table(win, dev)[meta[..., 0].long()]
     grid = (torch.arange(n, dtype=torch.float32, device=dev) + 0.5) / s
     y_lo, y_hi, fy = _axis_taps(geom[..., 0:1], geom[..., 2:3],
                                meta[..., 1:2].float(), win_hw[..., 0:1] - 1.0,
@@ -187,10 +209,46 @@ def _kron_side(feats, meta, geom, win, n: int, avg: int, hat: str,
     apart can flip a weight's bf16 rounding."""
     b, r = meta.shape[:2]
     c = feats[0].shape[-1]
+    wy, wx, window = _hat_rows(feats, meta, geom, win, n, avg)
+    wh, ww = wy.shape[-1], wx.shape[-1]
+    wy = wy.reshape(b * r, n, 1, wh, 1)
+    wx = wx.reshape(b * r, 1, n, 1, ww)
+    out = []
+    for i in range(0, b * r, chunk):
+        sl = slice(i, i + chunk)
+        # The hats are sums over the avg samples here: scale once.
+        wgt = (wy[sl] * wx[sl] * (1.0 / (avg * avg))).reshape(-1, n * n,
+                                                              wh * ww)
+        hi, lo = _hi_lo(wgt)
+        win_c = window(sl).reshape(-1, wh * ww, c)
+        res = torch.bmm(hi, win_c)
+        if hat == "kron_hilo":
+            res = res + torch.bmm(lo, win_c)
+        out.append(res)
+    return torch.cat(out).reshape(b, r, n * n, c)
+
+
+def _hi_lo(w):
+    """``w`` rounded to bf16 (hi) and its remainder rounded to bf16 (lo),
+    both as float32: ``roi_align_pallas.py::_hi_lo``."""
+    hi = w.to(torch.bfloat16).float()
+    return hi, (w - hi).to(torch.bfloat16).float()
+
+
+def _hat_rows(feats, meta, geom, win, n: int, avg: int):
+    """The hat rows of a side's samples over the largest window and a
+    gather of its windows: ``wy [B, R, n, wh]``, ``wx [B, R, n, ww]``, each
+    the SUM over a bin's ``avg`` samples of ``max(0, 1 - |cell - p|)``, ``p``
+    at ``y1 + (i * avg + a + 0.5) * bin`` (rounded once) clamped to the
+    level's window; and ``window(rows)``, the float32 windows ``[k, wh,
+    ww, C]`` of the rois ``rows`` (a slice of the ``B * R`` rois), zero
+    beyond the level's window.  Cells beyond it get zero hats anyway."""
+    b, r = meta.shape[:2]
+    c = feats[0].shape[-1]
     dev = meta.device
     f32 = torch.float32
     wh, ww = max(h for h, _ in win), max(w for _, w in win)
-    win_hw = torch.tensor(win, dtype=f32, device=dev)[meta[..., 0].long()]
+    win_hw = device_table(win, dev)[meta[..., 0].long()]
     win_h, win_w = win_hw[..., 0:1], win_hw[..., 1:2]            # [B, R, 1]
     cell_h = torch.arange(wh, dtype=f32, device=dev)
     cell_w = torch.arange(ww, dtype=f32, device=dev)
@@ -204,7 +262,7 @@ def _kron_side(feats, meta, geom, win, n: int, avg: int, hat: str,
 
     idx = torch.arange(n, dtype=f32, device=dev)
     wy = wx = 0.0
-    for a in range(avg):                               # avg-folded hats
+    for a in range(avg):
         k = idx * avg + a + 0.5
         ys = torch.minimum(torch.clamp(
             _fused_multiply_add(k, geom[..., 2:3], geom[..., 0:1]),
@@ -216,28 +274,59 @@ def _kron_side(feats, meta, geom, win, n: int, avg: int, hat: str,
                               min=0.0)                 # [B, R, n, wh]
         wx = wx + torch.clamp(1.0 - torch.abs(cell_w - xs[..., None]),
                               min=0.0)                 # [B, R, n, ww]
-    wy = wy.reshape(b * r, n, 1, wh, 1)
-    wx = wx.reshape(b * r, 1, n, 1, ww)
+
+    def window(sl):
+        return torch.where(inside[sl], atlas[index[sl]].float(),
+                           torch.zeros((), dtype=f32, device=dev)
+                           ).reshape(-1, wh, ww, c)
+    return wy, wx, window
+
+
+def _two_matmul_side(feats, meta, geom, win, n: int, avg: int, hat: str,
+                     chunk: int = 64) -> torch.Tensor:
+    """``[B, R, n, n, C]`` float32: ``_sample_grid``'s two-matmul branch
+    taken literally (``roi_align_pallas.py:311-356``), ``"bf16"`` for
+    ``hat_dtype=jnp.bfloat16`` and ``"hilo"``.  Per roi the hat rows ``wy
+    [n, wh]`` and ``wx [n, ww]`` of :func:`_hat_rows`, each the MEAN over a
+    bin's ``avg`` samples (summed, then halved); the window contracted with
+    ``wy`` over its rows, then with ``wx`` over its columns, in float32.
+    ``bf16``: ``wy``, the intermediate and ``wx`` rounded to bf16.
+    ``hilo``: ``wy`` split into bf16 hi + lo (two y-passes, summed), the
+    intermediate and ``wx`` split too, and the three products hi x hi,
+    hi x lo, lo x hi summed in that order (lo x lo dropped)."""
+    b, r = meta.shape[:2]
+    c = feats[0].shape[-1]
+    wy, wx, window = _hat_rows(feats, meta, geom, win, n, avg)
+    if avg > 1:
+        wy = wy * (1.0 / avg)       # exact: the mean of jnp.mean
+        wx = wx * (1.0 / avg)
+    wh, ww = wy.shape[-1], wx.shape[-1]
+    wy = wy.reshape(b * r, n, wh)
+    wx = wx.reshape(b * r, 1, n, ww)
     out = []
     for i in range(0, b * r, chunk):
         sl = slice(i, i + chunk)
-        wgt = (wy[sl] * wx[sl] * (1.0 / (avg * avg))).reshape(-1, n * n,
-                                                              wh * ww)
-        window = torch.where(inside[sl], atlas[index[sl]].float(),
-                             torch.zeros((), dtype=f32, device=dev))
-        hi = wgt.to(torch.bfloat16).float()
-        res = torch.bmm(hi, window)
-        if hat == "kron_hilo":
-            lo = (wgt - hi).to(torch.bfloat16).float()
-            res = res + torch.bmm(lo, window)
-        out.append(res)
-    return torch.cat(out).reshape(b, r, n * n, c)
+        wy_hi, wy_lo = _hi_lo(wy[sl])
+        wx_hi, wx_lo = _hi_lo(wx[sl])
+        win_c = window(sl).reshape(-1, wh, ww * c)
+        if hat == "bf16":
+            tmp = torch.bmm(wy_hi, win_c).reshape(-1, n, ww, c)
+            res = torch.matmul(wx_hi, _hi_lo(tmp)[0])
+        else:
+            tmp = (torch.bmm(wy_hi, win_c) +
+                   torch.bmm(wy_lo, win_c)).reshape(-1, n, ww, c)
+            t_hi, t_lo = _hi_lo(tmp)
+            res = (torch.matmul(wx_hi, t_hi) + torch.matmul(wx_hi, t_lo) +
+                   torch.matmul(wx_lo, t_hi))
+        out.append(res)                # [k, n(y), n(x), C]: y-major
+    return torch.cat(out).reshape(b, r, n, n, c)
 
 
 def stereo_roi_align_packed_ref(feats_l, feats_r, rois_l, rois_r, strides,
                                 hat: str = "f32") -> torch.Tensor:
-    """Plain PyTorch version of K1: ``[B, R, 294, C]`` float32."""
-    if hat not in HAT_MODES:        # as the JAX package's _HAT_MODES[hat]
+    """Plain PyTorch version of K1: ``[B, R, 294, C]`` float32; ``hat`` is
+    one of :data:`TOOL_HAT_MODES` (others raise ``KeyError``)."""
+    if hat not in TOOL_HAT_MODES:
         raise KeyError(hat)
     level_shapes = [(f.shape[1], f.shape[2]) for f in feats_l]
     win = window_shapes(level_shapes)
@@ -252,6 +341,11 @@ def stereo_roi_align_packed_ref(feats_l, feats_r, rois_l, rois_r, strides,
         left = sample_side(feats_l, meta_l, geom_l, win, PK)
         right = sample_side(feats_r, meta_r, geom_r, win, PK)
         pool_r = right.reshape(b, r, P, 2, P, 2, c).mean(dim=(3, 5))
+    elif hat in ("bf16", "hilo"):
+        # As the TPU kernel calls _sample_grid: the left side at ps=14, the
+        # right side's pool at ps=7 with avg=2.
+        left = _two_matmul_side(feats_l, meta_l, geom_l, win, PK, 1, hat)
+        pool_r = _two_matmul_side(feats_r, meta_r, geom_r, win, P, 2, hat)
     else:
         # The right side folds its 2x2 bin mean into the weights (avg 2).
         left = _kron_side(feats_l, meta_l, geom_l, win, PK, 1, hat)
@@ -351,10 +445,10 @@ def atlas_meta(level_shapes, rois: torch.Tensor, strides: Sequence[int]):
     meta, geom = roi_window_meta(level_shapes, rois, strides)
     offsets = [sum(h for h, _ in level_shapes[:i])
                for i in range(len(level_shapes))]
-    table = torch.tensor(
+    table = device_table(
         [[off, wh - 1, ww - 1] for off, (wh, ww)
          in zip(offsets, window_shapes(level_shapes))],
-        dtype=torch.float32, device=rois.device)[meta[..., 0].long()]
+        rois.device)[meta[..., 0].long()]
     meta_a = torch.stack([meta[..., 1] + table[..., 0].int(), meta[..., 2],
                           meta[..., 3], torch.zeros_like(meta[..., 3])],
                          dim=-1)
@@ -432,8 +526,10 @@ _I = ctypes.c_int
 
 
 class StereoRoIAlignKernel(CudaKernel):
-    """K1: ``stereo_roi_align_fwd`` (the forward), in every hat mode;
-    ``launches_by_hat`` counts the launches of each mode."""
+    """K1: ``stereo_roi_align_fwd`` (the forward), in every mode of
+    :data:`TOOL_HAT_MODES` (the kernel-level entry, as the JAX package's
+    ``stereo_roi_align_pallas``); ``launches_by_hat`` counts the launches of
+    each mode."""
 
     source = "stereo_roi_align.cu"
     symbol = "stereo_roi_align_fwd"
@@ -445,18 +541,19 @@ class StereoRoIAlignKernel(CudaKernel):
 
     def reset_counts(self) -> None:
         super().reset_counts()
-        self.launches_by_hat = dict.fromkeys(HAT_MODES, 0)
+        self.launches_by_hat = dict.fromkeys(TOOL_HAT_MODES, 0)
 
     def __call__(self, feats_l, feats_r, rois_l, rois_r, strides,
                  hat: str = "f32") -> torch.Tensor:
-        mode = HAT_MODES[hat]       # KeyError for an unknown mode, as JAX's
+        mode = TOOL_HAT_MODES[hat]  # KeyError for an unknown mode
         fn = self.load()
         feats_l, feats_r = list(feats_l), list(feats_r)
         dtype, b, r, c = _check_pyramids(feats_l, feats_r, rois_l, rois_r)
         dev = rois_l.device
         level_shapes = [(f.shape[1], f.shape[2]) for f in feats_l]
-        meta_l, geom_l = roi_window_meta(level_shapes, rois_l, strides)
-        meta_r, geom_r = roi_window_meta(level_shapes, rois_r, strides)
+        # Both sides in one pass: half the small launches of the metadata.
+        meta, geom = roi_window_meta(level_shapes,
+                                     torch.stack([rois_l, rois_r]), strides)
         out = torch.empty((b, r, ROWS, c), dtype=torch.float32, device=dev)
         ptrs = ctypes.c_void_p * 4
         ints = ctypes.c_int * 8
@@ -467,8 +564,8 @@ class StereoRoIAlignKernel(CudaKernel):
                      ints(*[v for hw in level_shapes for v in hw]),
                      ints(*[v for hw in window_shapes(level_shapes)
                             for v in hw]),
-                     meta_l.data_ptr(), geom_l.data_ptr(),
-                     meta_r.data_ptr(), geom_r.data_ptr(), out.data_ptr(),
+                     meta[0].data_ptr(), geom[0].data_ptr(),
+                     meta[1].data_ptr(), geom[1].data_ptr(), out.data_ptr(),
                      b, r, c, int(dtype == torch.bfloat16), mode, stream)
         self._launched(err)
         self.launches_by_hat[hat] += 1
@@ -484,7 +581,9 @@ class StereoRoIAlignBwdKernel(CudaKernel):
 
     def __call__(self, g_packed, rois_l, rois_r, level_shapes, strides):
         """float32 ``(d_feats_l, d_feats_r)`` lists of ``[B, H_l, W_l, C]``
-        for the packed cotangent ``g_packed`` [B, R, 294, C] float32."""
+        for the packed cotangent ``g_packed`` [B, R, 294, C] float32.  The
+        kernel writes every gradient cell once, so they are allocated
+        uninitialised."""
         fn = self.load()
         level_shapes = [tuple(hw) for hw in level_shapes]
         if len(level_shapes) != 4:
@@ -498,14 +597,16 @@ class StereoRoIAlignBwdKernel(CudaKernel):
             raise ValueError(f"cotangent must be contiguous float32 "
                              f"[{b}, {r}, {ROWS}, C], got {g_packed.dtype} "
                              f"{tuple(g_packed.shape)}")
+        if c % 4:
+            raise ValueError(f"channel count must be a multiple of 4, got {c}")
         _check_rois(rois_l, rois_r, b, r)
         if rois_l.device != dev:
             raise ValueError("rois and cotangent must share a device")
-        meta_l, geom_l = roi_window_meta(level_shapes, rois_l, strides)
-        meta_r, geom_r = roi_window_meta(level_shapes, rois_r, strides)
-        d_l = [torch.zeros((b, h, w, c), dtype=torch.float32, device=dev)
+        meta, geom = roi_window_meta(level_shapes,
+                                     torch.stack([rois_l, rois_r]), strides)
+        d_l = [torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
                for h, w in level_shapes]
-        d_r = [torch.zeros_like(d) for d in d_l]
+        d_r = [torch.empty_like(d) for d in d_l]
         ptrs = ctypes.c_void_p * 4
         ints = ctypes.c_int * 8
         with torch.cuda.device(dev):
@@ -515,8 +616,8 @@ class StereoRoIAlignBwdKernel(CudaKernel):
                      ints(*[v for hw in level_shapes for v in hw]),
                      ints(*[v for hw in window_shapes(level_shapes)
                             for v in hw]),
-                     meta_l.data_ptr(), geom_l.data_ptr(),
-                     meta_r.data_ptr(), geom_r.data_ptr(),
+                     meta[0].data_ptr(), geom[0].data_ptr(),
+                     meta[1].data_ptr(), geom[1].data_ptr(),
                      g_packed.data_ptr(), b, r, c, stream)
         self._launched(err)
         return d_l, d_r
@@ -553,11 +654,12 @@ class StereoRoIAlignAtlasKernel(CudaKernel):
             if a.device != dev or not a.is_contiguous():
                 raise ValueError("atlases must be contiguous, on the rois' "
                                  "device")
-        if c % 2:
-            raise ValueError(f"channel count must be even, got {c}")
+        if c % 8 or c > 2048:
+            raise ValueError(f"channel count must be a multiple of 8, at "
+                             f"most 2048, got {c}")
         _check_rois(rois_l, rois_r, b, r)
-        meta_l, geom_l = atlas_meta(level_shapes, rois_l, strides)
-        meta_r, geom_r = atlas_meta(level_shapes, rois_r, strides)
+        meta, geom = atlas_meta(level_shapes, torch.stack([rois_l, rois_r]),
+                                strides)
         out14l = torch.empty((b, r, PK, PK, c), dtype=torch.float32,
                              device=dev)
         out7l = torch.empty((b, r, P, P, c), dtype=torch.float32, device=dev)
@@ -565,8 +667,8 @@ class StereoRoIAlignAtlasKernel(CudaKernel):
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(atlas_l.data_ptr(), atlas_r.data_ptr(),
-                     meta_l.data_ptr(), geom_l.data_ptr(),
-                     meta_r.data_ptr(), geom_r.data_ptr(),
+                     meta[0].data_ptr(), geom[0].data_ptr(),
+                     meta[1].data_ptr(), geom[1].data_ptr(),
                      out14l.data_ptr(), out7l.data_ptr(), out7r.data_ptr(),
                      b, r, ah, aw, c, int(dtype == torch.bfloat16), stream)
         self._launched(err)
@@ -618,13 +720,16 @@ class _StereoRoIAlign(torch.autograd.Function):
 def stereo_roi_align_packed(feats_l, feats_r, rois_l, rois_r, strides,
                             hat: str = "f32") -> torch.Tensor:
     """Fused stereo RoIAlign, ``[B, R, 294, C]`` float32, differentiable
-    w.r.t. the levels; ``hat`` is one of :data:`HAT_MODES` (others raise
-    ``KeyError``, as the JAX package's lookup does).
+    w.r.t. the levels; ``hat`` is one of :data:`HAT_MODES` (others, the
+    tool-only ``"bf16"`` and ``"hilo"`` too, raise ``KeyError``, as the JAX
+    package's ``_HAT_MODES[hat]`` does).
 
     CUDA tensors launch the kernels (or raise); CPU tensors take
     :func:`stereo_roi_align_packed_ref` and
     :func:`stereo_roi_align_packed_bwd_ref`.  Any other device raises.
     """
+    if hat not in HAT_MODES:
+        raise KeyError(hat)
     return _StereoRoIAlign.apply(rois_l, rois_r, tuple(strides), hat,
                                  *feats_l, *feats_r)
 

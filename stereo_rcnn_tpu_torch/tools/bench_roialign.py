@@ -11,7 +11,10 @@ events after a warm-up call.  For each line it prints ms per batch and
 us per roi:
 
 - K1 (``csrc/stereo_roi_align.cu``), packed output, in each sampling-weight
-  mode: ``f32``, ``kron_bf16``, ``kron_hilo``;
+  mode of the public entry (``f32``, ``kron_bf16``, ``kron_hilo``), then in
+  the two-matmul modes ``bf16`` and ``hilo`` through the kernel-level entry
+  (``stereo_roi_align_kernel``), as the JAX tool reaches them through
+  ``stereo_roi_align_pallas(hat_dtype=...)``;
 - K4 (``csrc/stereo_roi_align_atlas.cu``) on packed atlases, the atlas
   packing of both sides alone (a torch copy), and the two together;
 - the atlas gather (``ops/roi_align.py::multilevel_roi_align``, the
@@ -21,9 +24,7 @@ us per roi:
 Left out of the JAX tool: ``bench_skip`` and ``group``, which ablate the
 TPU kernel's DMA/compute pipeline and its grid steps (a CUDA kernel has
 neither); the unpacked three-output K1 layout, which the port does not
-have; and the two-matmul ``hat=bf16`` and ``hat=hilo`` modes, reachable
-only through that tool and not ported yet.  It needs a CUDA card and
-raises without one.
+have.  It needs a CUDA card and raises without one.
 """
 
 from __future__ import annotations
@@ -103,6 +104,10 @@ def main(argv=None) -> dict:
 
     for hat in sra.HAT_MODES:
         timeit(f"K1 packed {hat}", lambda hat=hat: sra.stereo_roi_align_packed(
+            feats, feats, rois, rois_r, STRIDES, hat))
+    # Hat-weight MXU precision sweep of the JAX tool (its :107-108).
+    for hat in ("bf16", "hilo"):
+        timeit(f"K1 hat={hat}", lambda hat=hat: sra.stereo_roi_align_kernel(
             feats, feats, rois, rois_r, STRIDES, hat))
     atlas, _ = sra.pack_atlas(feats)
     timeit("K4 atlas packing (2 sides)",

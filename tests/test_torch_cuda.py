@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-K1 in every sampling-weight mode, its backward K2, the windowed RoIAlign
-K3 and the atlas variant K4.  Every test here carries the ``cuda`` marker
+K1 in every sampling-weight mode (the tool-only two-matmul modes too), its
+backward K2 (deterministic: two launches give the same bits), the windowed
+RoIAlign K3 and the atlas variant K4.  Every test here carries the ``cuda`` marker
 and skips without a CUDA device.  The file imports no JAX, so it runs on
 a machine without it:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -61,8 +62,9 @@ def test_k1_cuda_kernel_matches_plain(dtype):
 def test_k2_cuda_kernel_matches_plain_backward(dtype):
     """K2 against the plain backward on the card, and the autograd
     Function's backward launching it.  1e-5 of each level's largest
-    |gradient|: both sum the same float32 terms, K2 with atomics in an
-    order that changes from run to run."""
+    |gradient|: both sum the same float32 terms, K2 per gradient cell in
+    roi, sample and tap order with each multiply fused into its add, the
+    plain version tap by tap."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     fl, fr, rl, rr = _k1_inputs(256)
@@ -122,6 +124,82 @@ def test_k1_kron_modes_match_plain(hat, dtype):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
 
 
+def close_two_matmul(out, ref, feats):
+    """K1's two-matmul modes against their plain version: the same rounded
+    hats, but the plain version's y-pass is a cuBLAS product whose float32
+    sums may run in another order; a bf16 intermediate one rounding from a
+    bf16 boundary then moves by a bf16 step, at most 2^-7 of the largest
+    |feature| (the x-hats sum to 1).  So every value within 2^-6 of it, and
+    all but 0.1 % of the 294-row blocks' rows within 1e-5 (0.011 % measured
+    on an H100)."""
+    scale = max(f.abs().max().item() for f in feats)
+    diff = (out - ref).abs()
+    assert diff.max().item() <= 2.0 ** -6 * scale, diff.max().item()
+    off = (diff.amax(-1) > 1e-5).float().mean().item()
+    assert off <= 0.001, f"{off:.3%} of the rows beyond 1e-5"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hat", ["bf16", "hilo"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_two_matmul_modes_match_plain(hat, dtype):
+    """K1 in a tool-only two-matmul mode, through the kernel-level entry,
+    against its plain version; the public entry refuses the mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fl, fr, rl, rr = _k1_inputs(256)
+    dev = torch.device("cuda")
+    tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
+    tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
+    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
+    k1 = t_sra.stereo_roi_align_kernel
+    before = k1.launches_by_hat[hat]
+    out = k1(tl, tr, rl_t, rr_t, STRIDES, hat)
+    torch.cuda.synchronize()
+    assert k1.launches_by_hat[hat] == before + 1
+    ref = t_sra.stereo_roi_align_packed_ref(tl, tr, rl_t, rr_t, STRIDES, hat)
+    close_two_matmul(out, ref, tl + tr)
+    assert out[0, 2].abs().max().item() == 0.0          # zero-area roi
+    with pytest.raises(KeyError):
+        t_sra.stereo_roi_align_packed(tl, tr, rl_t, rr_t, STRIDES, hat)
+
+
+@pytest.mark.cuda
+def test_k2_is_deterministic_and_owns_each_cell():
+    """Two K2 launches give the same bits, also when all 128 rois of an
+    image are one box (every sample of every roi adds into the same
+    cells), and match the plain backward within 1e-5 of each level's
+    largest |gradient|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, _, rl, rr = _k1_inputs(256)
+    dev = torch.device("cuda")
+    shapes = [(384 // s, 1280 // s) for s in STRIDES]
+    rl = np.concatenate([rl[:, :128], np.tile(
+        np.float32([[[300, 100, 420, 190]]]), (2, 128, 1))])
+    rr = rl - np.float32([17, 0, 14, 0])
+    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
+    g = torch.randn(4, 128, t_sra.ROWS, 256, device=dev,
+                    generator=torch.Generator(dev).manual_seed(1))
+    k2 = t_sra.stereo_roi_align_bwd_kernel
+    first = k2(g, rl_t, rr_t, shapes, STRIDES)
+    second = k2(g, rl_t, rr_t, shapes, STRIDES)
+    torch.cuda.synchronize()
+    ref = t_sra.stereo_roi_align_packed_bwd_ref(g, rl_t, rr_t, shapes,
+                                                STRIDES)
+    for a, b_, r in zip(first[0] + first[1], second[0] + second[1],
+                        ref[0] + ref[1]):
+        assert torch.equal(a, b_)
+        torch.testing.assert_close(a, r, atol=1e-5 * r.abs().max().item(),
+                                   rtol=0)
+    # Only the zero-area rois' rows of the cotangent: an exactly zero
+    # gradient (the kernel writes every cell, zeros included).
+    g0 = torch.zeros_like(g)
+    g0[0, 2] = g[0, 2]
+    d0_l, d0_r = k2(g0, rl_t, rr_t, shapes, STRIDES)
+    assert not any(d.any() for d in d0_l + d0_r)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("p, s", [(7, 2), (14, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -147,8 +225,11 @@ def test_k3_cuda_kernel_matches_plain(p, s, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k4_cuda_kernel_matches_plain(dtype):
-    """K4 against its plain version, one launch for both images.  1e-4, as
-    K1."""
+    """K4 against its plain version, one launch for both images, and
+    against K1 f32 on the same inputs.  1e-4, as
+    K1: the right pool sums its taps per distinct cell, in another float32
+    order than the mean of four samples; the left side is K1's arithmetic.
+    A zero-area roi writes zeros."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     fl, fr, rl, rr = _k1_inputs(256)
@@ -163,3 +244,15 @@ def test_k4_cuda_kernel_matches_plain(dtype):
     ref = t_sra.stereo_roi_align_atlas_ref(tl, tr, rl_t, rr_t, STRIDES)
     for o, r in zip(out, ref):
         torch.testing.assert_close(o, r, atol=1e-4, rtol=0)
+    packed = t_sra.stereo_roi_align_kernel(tl, tr, rl_t, rr_t, STRIDES)
+    shapes = [(f.shape[1], f.shape[2]) for f in tl]
+    atlas_l = t_sra.pack_atlas(tl)[0]
+    atlas_r = t_sra.pack_atlas(tr)[0]
+    out = t_sra.stereo_roi_align_atlas_kernel(atlas_l, atlas_r, shapes, rl_t,
+                                              rr_t, STRIDES)
+    b, r = rl.shape[:2]
+    for o, rows in zip(out, (slice(196, 245), slice(245, 294),
+                             slice(0, 196))):
+        torch.testing.assert_close(o.reshape(b, r, -1, 256),
+                                   packed[:, :, rows], atol=1e-4, rtol=0)
+    assert all(o[0, 2].abs().max().item() == 0.0 for o in out)

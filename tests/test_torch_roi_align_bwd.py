@@ -137,3 +137,61 @@ def test_autograd_function_uses_the_plain_backward(case, dtype):
     for t, d in zip(tl + tr, d_l + d_r):
         assert t.grad.dtype == dtype
         assert torch.equal(t.grad, d.to(dtype))
+
+
+def _kernel_rect(meta, geom, shapes):
+    """K2's tile test restated (``axis_meets`` in
+    ``csrc/stereo_roi_align_bwd.cu``): per roi and axis, the low tap of
+    sample 0 and the high tap of sample 13, in absolute level cells
+    ``(first row, last row, first column, last column)``."""
+    win = np.array(t_sra.window_shapes(shapes))[meta[..., 0]]    # [B, R, 2]
+    out = []
+    for axis in (0, 1):
+        last = (win[..., axis] - 1).astype(np.float32)
+        start, step = geom[..., axis], geom[..., 2 + axis]
+
+        def tap_cell(k):                # the fused multiply-add, clamped
+            pos = (np.float64(k) * step + start).astype(np.float32)
+            return np.floor(np.minimum(np.maximum(pos, 0.0), last))
+        origin = meta[..., 1 + axis]
+        out += [origin + tap_cell(0.5).astype(np.int64),
+                origin + np.minimum(tap_cell(t_sra.PK - 0.5) + 1.0,
+                                    last).astype(np.int64)]
+    return np.stack(out, -1)
+
+
+def test_tap_rects_span_every_tap(case):
+    """K2's tile test: the rectangle its hit scan computes from a roi's
+    metadata (:func:`_kernel_rect`) is exactly the span of the taps that
+    ``packed_bwd_contributions`` scatters for each valid roi, so every tap
+    falls inside it; a zero-area roi has its valid bit 0, which the scan
+    skips, and scatters only zeros."""
+    shapes, fl, fr, rl, rr, cot = case
+    sizes = [h * w for h, w in shapes]
+    offsets = np.cumsum([0] + sizes[:-1])
+    widths = np.array([w for _, w in shapes])
+    contrib = t_sra.packed_bwd_contributions(
+        torch.from_numpy(cot), torch.from_numpy(rl), torch.from_numpy(rr),
+        shapes, STRIDES)
+    r = rl.shape[1]
+    for rois, side in ((rl, contrib[0]), (rr, contrib[1])):
+        meta, geom = t_sra.roi_window_meta(shapes, torch.from_numpy(rois),
+                                           STRIDES)
+        meta, geom = meta.numpy(), geom.numpy()
+        rect = _kernel_rect(meta, geom, shapes)
+        level = meta[..., 0]
+        valid = meta[..., 3] > 0
+        idx = torch.stack([i.reshape(B, r, -1) for i, _ in side],
+                          -1).reshape(B, r, -1).numpy()
+        rem = (idx - (np.arange(B) * sum(sizes))[:, None, None] -
+               offsets[level][..., None])
+        rows, cols = rem // widths[level][..., None], \
+            rem % widths[level][..., None]
+        span = np.stack([rows.min(-1), rows.max(-1), cols.min(-1),
+                         cols.max(-1)], -1)
+        assert valid.sum() >= 2 * 7 and (~valid).sum() >= 2 * 2
+        np.testing.assert_array_equal(rect[valid], span[valid])
+        empty = (rois[..., 2] <= rois[..., 0]) | (rois[..., 3] <= rois[..., 1])
+        np.testing.assert_array_equal(valid, ~empty)
+        values = torch.stack([v.reshape(B, r, -1) for _, v in side], -1)
+        assert not values[torch.from_numpy(~valid)].any()

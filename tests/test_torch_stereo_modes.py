@@ -1,7 +1,8 @@
 """The fused stereo RoIAlign's other forms in the port against the JAX
 package, on the CPU: K1's kron sampling-weight modes (``kron_bf16``,
-``kron_hilo``) and K4, the atlas variant, each through its plain version
-against the Pallas kernel in interpret mode.
+``kron_hilo``), its tool-only two-matmul modes (``bf16``, ``hilo``) and K4,
+the atlas variant, each through its plain version against the Pallas
+kernel in interpret mode.
 
 Inputs come from numpy with fixed seeds: a 256x512 pyramid (so the P2 and
 P3 windows are narrower than their levels), C=8, unit-variance features,
@@ -14,11 +15,19 @@ rounding).
 Tolerances: the kron modes 1e-5 absolute: the port computes the same
 rounded weights as the TPU kernel's interpret run (positions rounded once,
 as XLA's fused multiply-add), so only the float32 sums' order differs.
+The two-matmul modes 1e-5 absolute too, for the same reason: the same
+rounded hats, and y-pass sums over the same two (left) or four (right)
+touched rows.  A bf16 intermediate one float32 rounding from a bf16
+boundary would move by a bf16 step (about 1e-2 here) where the two sum in
+another order; these inputs hit none (measured: 2.4e-7).
 K4 1e-4 absolute against the Pallas kernel, as K1's f32 test (XLA fuses the
 positions' multiply-add, the plain version rounds twice); K4's plain
 version against K1's f32 plain version 1e-5 (the same taps on the same
 values; in fact equal).
 """
+
+import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +36,9 @@ import torch
 
 from stereo_rcnn_tpu.ops.roi_align_pallas import (
     _atlas_meta, _pack_atlas, stereo_roi_align_batched_packed,
-    stereo_roi_align_pallas_atlas)
+    stereo_roi_align_pallas, stereo_roi_align_pallas_atlas)
+from stereo_rcnn_tpu_torch.config import tiny_test_config
+from stereo_rcnn_tpu_torch.models import detector as t_det
 from stereo_rcnn_tpu_torch.ops import stereo_roi_align as t_sra
 
 STRIDES = (4, 8, 16, 32)
@@ -91,6 +102,52 @@ def test_k1_kron_plain_matches_jax_kernel(hat, bf16):
     _, geom = t_sra.roi_window_meta(level_shapes, torch.from_numpy(rr),
                                     STRIDES)
     assert (geom[0, 4:7, 2:] < 1).all()
+
+
+@pytest.mark.parametrize("hat", ["bf16", "hilo"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k1_two_matmul_plain_matches_jax_kernel(hat, bf16):
+    """All 294 rows of K1's plain version in a two-matmul mode against
+    ``stereo_roi_align_pallas(hat_dtype=jnp.bfloat16 / "hilo")`` in
+    interpret mode, image by image: the kpt samples, the left 7x7 and the
+    right 7x7 (``ps=7, avg=2``)."""
+    fl, fr, rl, rr = _inputs(jnp.bfloat16 if bf16 else np.float32)
+    out = t_sra.stereo_roi_align_packed_ref(*_torch_args(fl, fr, rl, rr),
+                                            STRIDES, hat)
+    assert out.dtype == torch.float32
+    r = rl.shape[1]
+    for b in range(B):
+        p7l, p7r, k14 = stereo_roi_align_pallas(
+            [jnp.asarray(f[b]) for f in fl], [jnp.asarray(f[b]) for f in fr],
+            jnp.asarray(rl[b]), jnp.asarray(rr[b]), STRIDES, 7, 14,
+            interpret=True, hat_dtype=jnp.bfloat16 if hat == "bf16" else hat)
+        ref = np.concatenate([np.asarray(x).reshape(r, -1, C)
+                              for x in (k14, p7l, p7r)], axis=1)
+        np.testing.assert_allclose(out[b].numpy(), ref, rtol=0, atol=1e-5)
+    assert float(out[0, 0].abs().max()) == 0.0          # zero-area roi
+    # Not the kron weights, nor the f32 ones: the mode is its own.
+    args = _torch_args(fl, fr, rl, rr)
+    for other in ("f32", "kron_bf16" if hat == "bf16" else "kron_hilo"):
+        assert not torch.equal(
+            out, t_sra.stereo_roi_align_packed_ref(*args, STRIDES, other))
+
+
+@pytest.mark.parametrize("hat", ["bf16", "hilo"])
+def test_two_matmul_modes_stay_off_the_public_entry(hat):
+    """As the JAX package's ``_HAT_MODES``: the public entry and the
+    detector's ``rcnn.roi_align_hat`` refuse the tool-only modes, which the
+    kernel-level entry (here its plain version) takes."""
+    fl, fr, rl, rr = _torch_args(*_inputs())
+    assert hat not in t_sra.HAT_MODES and hat in t_sra.TOOL_HAT_MODES
+    with pytest.raises(KeyError):
+        t_sra.stereo_roi_align_packed(fl, fr, rl, rr, STRIDES, hat)
+    cfg = tiny_test_config()
+    cfg = dataclasses.replace(cfg, rcnn=dataclasses.replace(
+        cfg.rcnn, roi_align_impl="pallas", roi_align_hat=hat))
+    with pytest.raises(KeyError):
+        t_det.roi_features(types.SimpleNamespace(cfg=cfg), fl, fr, rl, rr)
+    assert t_sra.stereo_roi_align_packed_ref(
+        fl, fr, rl, rr, STRIDES, hat).shape == (B, rl.shape[1], 294, C)
 
 
 def test_kron_modes_keep_the_f32_backward():
