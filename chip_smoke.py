@@ -19,14 +19,15 @@ the CUDA toolkit (``nvcc``).  Phases, each raising on failure:
    the level shapes of both paths (1280x384, C=256; 300 rois for
    inference, 128 at batch 8 for training) with edge-case rois, in
    bfloat16 and float32, all timed at batch 16 (kernel device time and
-   wrapper call);
+   wrapper call) beside a store-only floor (the output zeroed alone);
 4. K2 against its plain backward at the training shapes (batch 8, 128
    rois, C=256, bfloat16 levels) with edge-case rois; two launches must
    give the same bits; timed beside the plain version and one
    ``index_add_`` of the same scatter;
 5. K3 through its entry point ``multilevel_roi_align_window`` (batched and
    unbatched) against its plain version at 1280x384, C=256, batch 16, 300
-   rois, (P, s) = (7, 2) and (14, 1), bfloat16 and float32, timed;
+   rois, (P, s) = (7, 2) and (14, 1), bfloat16 and float32, timed beside
+   a store-only floor;
 6. K4 against its plain version and against K1 f32 at batch 16, 300 rois,
    timed beside a store-only floor (the three outputs zeroed), its atlas
    packing timed apart;
@@ -58,14 +59,22 @@ the CUDA toolkit (``nvcc``).  Phases, each raising on failure:
     in each of its five modes, K4 (and its packing) and the gather; every
     K1 mode and K4 must launch.
 
-Times of the kernels' previous versions (the atomic K2, the two-channel
-K4 and the wrappers that copied their tables to the card on every call;
-"NVIDIA H100 80GB HBM3, 700.00 W", PERF.md) are printed beside the new
-ones for comparison; they are constants, not measured here.
+Times of the kernels' previous versions (the two-channel K1 and K3, the
+atomic K2, the two-channel K4 and the wrappers that copied their tables
+to the card on every call; "NVIDIA H100 80GB HBM3, 700.00 W", PERF.md)
+are printed beside the new ones for comparison; they are constants, not
+measured here.
 
 Every phase's wall seconds are printed.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --digests PATH
+
+also writes to PATH a JSON object of the sha256 of every output of K1,
+K3 and K4 that phases 3, 5 and 6 check, keyed by kernel, mode and
+shape: two builds that give the same file give the same bits on these
+inputs (the inputs come from a seeded generator).
 
     python3 chip_smoke.py --training-only [--train-steps N]
 
@@ -79,6 +88,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import hashlib
 import json
 import re
 import subprocess
@@ -115,8 +125,13 @@ TOL_2MM_ROWS = 0.001
 # |gradient|.
 TOL_BWD = 1e-5
 # The previous versions' times (on "NVIDIA H100 80GB HBM3, 700.00 W",
-# PERF.md): kernel device ms and wrapper call ms.
-PREVIOUS_MS = {"K1": (1.106, 2.234), "K2": (0.947, 2.225),
+# PERF.md): K1 and K3 the device ms of their two-channel kernels at batch
+# 16 x 300, bf16, per mode and per (P, s); K2 and K4 the kernel device ms
+# and wrapper call ms of the atomic K2 and the two-channel K4.
+PREVIOUS_MS = {"K1": {"f32": 1.105, "kron_bf16": 1.122, "kron_hilo": 1.128,
+                      "bf16": 1.115, "hilo": 1.316},
+               "K2": (0.947, 2.225),
+               "K3": {(7, 2): 0.545, (14, 1): 0.868},
                "K4": (1.409, 2.777)}
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -160,6 +175,11 @@ def _clocks() -> str:
 
 def _bound_ms(n_bytes: float) -> float:
     return 1e3 * n_bytes / HBM_BYTES_PER_S
+
+
+def _sha256(t: torch.Tensor) -> str:
+    """The sha256 of a tensor's bytes, on the host."""
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy()).hexdigest()
 
 
 def _edge_case_rois(gen, b, r, dev):
@@ -241,13 +261,14 @@ def _k1_error(out, ref, hat, feats):
     return e, f"tol {tol:.0e}"
 
 
-def check_k1(sra, dev, gen, card):
-    """Phase 3: K1 in every mode against its plain version."""
+def check_k1(sra, dev, gen, card, digests=None):
+    """Phase 3: K1 in every mode against its plain version.  ``digests``
+    (a dict or None) takes the sha256 of every output."""
     k1 = sra.stereo_roi_align_kernel
     c = 256
     err = dict.fromkeys(sra.TOOL_HAT_MODES, 0.0)
     ms, call_ms, plain_ms = {}, {}, {}
-    bound = None
+    bound = store_ms = None
     # The inference path's shapes (300 rois, batch 16) and the training
     # path's (128 rois, batch 8).
     for b, r, dtype in ((2, 300, torch.bfloat16), (2, 300, torch.float32),
@@ -267,6 +288,8 @@ def check_k1(sra, dev, gen, card):
             if out[:, 2].abs().max().item() != 0.0:
                 raise RuntimeError("zero-area roi did not give zeros")
             err[hat] = max(err[hat], e)
+            if digests is not None:
+                digests[f"K1 {hat} {dtype} B={b} R={r}"] = _sha256(out)
             print(f"K1 {hat:9s} {str(dtype):14s} B={b:2d} R={r} C={c}: max "
                   f"abs err {e:.3e} ({how})", flush=True)
             if b == 16:
@@ -279,20 +302,24 @@ def check_k1(sra, dev, gen, card):
                 # Each output written once, each level of both sides read
                 # once.
                 bound = _bound_ms(out.numel() * 4 + 2 * _level_bytes(b, c, 2))
+                if store_ms is None:
+                    # A floor for the store side, not a library call: the
+                    # output written alone.
+                    store_ms = _events_ms(out.zero_, 20)
             del out, ref
         del fl, fr
     torch.cuda.empty_cache()
     for hat in sra.TOOL_HAT_MODES:
         print(f"K1 {hat} time at batch 16, bf16: kernel {ms[hat]:.3f} ms "
-              f"(device; {call_ms[hat]:.3f} ms per wrapper call), plain "
-              f"{plain_ms[hat]:.3f} ms, bound {bound:.3f} ms (bytes)  "
-              f"[{card}]", flush=True)
-    print(f"K1 f32 wrapper call {call_ms['f32']:.3f} ms, the previous "
-          f"{PREVIOUS_MS['K1'][1]:.3f} ms (the per-level tables now stay on "
-          f"the device)", flush=True)
+              f"(device; the two-channel kernel "
+              f"{PREVIOUS_MS['K1'][hat]:.3f} ms; "
+              f"{call_ms[hat]:.3f} ms per wrapper call), plain "
+              f"{plain_ms[hat]:.3f} ms, bound {bound:.3f} ms (bytes), "
+              f"store-only floor (the output zeroed, not a library call) "
+              f"{store_ms:.3f} ms  [{card}]", flush=True)
     return {hat: {"max_abs_err": err[hat], "ms": ms[hat],
                   "call_ms": call_ms[hat], "plain_ms": plain_ms[hat],
-                  "bound_ms": bound}
+                  "bound_ms": bound, "store_floor_ms": store_ms}
             for hat in sra.TOOL_HAT_MODES}
 
 
@@ -390,8 +417,9 @@ def check_k2(sra, dev, gen, card):
             "store_floor_ms": floor_ms, "one_box_ms": box_ms}
 
 
-def check_k3(dev, gen, card):
-    """Phase 5: K3 through its entry point, against its plain version."""
+def check_k3(dev, gen, card, digests=None):
+    """Phase 5: K3 through its entry point, against its plain version.
+    ``digests`` (a dict or None) takes the sha256 of every output."""
     from stereo_rcnn_tpu_torch.ops import roi_align_window as win
     k3 = win.roi_align_window_kernel
     b, r, c = 16, 300, 256
@@ -418,6 +446,10 @@ def check_k3(dev, gen, card):
     for dtype, p, s in cases:
         f = feats[dtype]
         out, out1 = outs.pop((dtype, p, s))
+        if digests is not None:
+            name = f"K3 {dtype} P={p} s={s}"
+            digests[name] = _sha256(out)
+            digests[f"{name} unbatched"] = _sha256(out1)
         ref = win.multilevel_roi_align_window_ref(f, rois, STRIDES, p, s)
         e = max((out - ref).abs().max().item(),
                 (out1 - ref[3]).abs().max().item())
@@ -437,13 +469,19 @@ def check_k3(dev, gen, card):
         # Its float32 output written once, one side's levels read once.
         bound = _bound_ms(out.numel() * 4 +
                           _level_bytes(b, c, f[0].element_size()))
+        # A floor for the store side, not a library call: the output
+        # written alone.
+        store_ms = _events_ms(out.zero_, 20)
         res[dtype, p, s] = {"ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound}
+                            "bound_ms": bound, "store_floor_ms": store_ms}
+        before = (f"the two-channel kernel {PREVIOUS_MS['K3'][p, s]:.3f} ms; "
+                  if dtype == torch.bfloat16 else "")
         print(f"K3 {str(dtype):14s} (P, s) = ({p:2d}, {s}) B={b} R={r} "
               f"C={c}: max abs err {e:.3e} (tol {TOL:.0e}); kernel "
-              f"{ms:.3f} ms (device; {call_ms:.3f} ms per call), plain "
-              f"{plain_ms:.3f} ms, bound {bound:.3f} ms (bytes)  [{card}]",
-              flush=True)
+              f"{ms:.3f} ms (device; {before}{call_ms:.3f} ms per call), "
+              f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms (bytes), "
+              f"store-only floor (the output zeroed, not a library call) "
+              f"{store_ms:.3f} ms  [{card}]", flush=True)
         del out, out1, ref
     del feats
     torch.cuda.empty_cache()
@@ -453,8 +491,9 @@ def check_k3(dev, gen, card):
                         for (d, p, s), v in res.items()}}
 
 
-def check_k4(sra, dev, gen, card):
-    """Phase 6: K4 against its plain version and against K1 f32."""
+def check_k4(sra, dev, gen, card, digests=None):
+    """Phase 6: K4 against its plain version and against K1 f32.
+    ``digests`` (a dict or None) takes the sha256 of every output."""
     k1, k4 = sra.stereo_roi_align_kernel, sra.stereo_roi_align_atlas_kernel
     c = 256
     err = 0.0
@@ -481,6 +520,9 @@ def check_k4(sra, dev, gen, card):
         if any(o[:, 2].abs().max().item() != 0.0 for o in out):
             raise RuntimeError("K4: zero-area roi did not give zeros")
         err = max(err, e)
+        if digests is not None:
+            for name, o in zip(("7l", "7r", "14l"), out):
+                digests[f"K4 {name} {dtype} B={b} R={r}"] = _sha256(o)
         print(f"K4 {str(dtype):14s} B={b:2d} R={r} C={c}: max abs err "
               f"{e:.3e} vs plain, {e_k1:.3e} vs K1 f32 (tol {TOL:.0e})",
               flush=True)
@@ -912,6 +954,9 @@ def main(argv=None) -> int:
                              "prints no result line")
     parser.add_argument("--train-steps", type=int, default=3,
                         help="timed steps on the fused training path")
+    parser.add_argument("--digests", metavar="PATH",
+                        help="write the sha256 of every K1, K3 and K4 "
+                             "output checked to PATH (JSON)")
     args = parser.parse_args(argv)
     # -- 1. environment --------------------------------------------------
     if not torch.cuda.is_available():
@@ -962,10 +1007,16 @@ def main(argv=None) -> int:
         phase("training", training, sra, dev, card, args.train_steps)
         return 0
     gen = torch.Generator(device=dev).manual_seed(0)
-    k1 = phase("K1", check_k1, sra, dev, gen, card)
+    digests = None if args.digests is None else {}
+    k1 = phase("K1", check_k1, sra, dev, gen, card, digests)
     k2 = phase("K2", check_k2, sra, dev, gen, card)
-    k3 = phase("K3", check_k3, dev, gen, card)
-    k4 = phase("K4", check_k4, sra, dev, gen, card)
+    k3 = phase("K3", check_k3, dev, gen, card, digests)
+    k4 = phase("K4", check_k4, sra, dev, gen, card, digests)
+    if digests is not None:
+        with open(args.digests, "w") as f:
+            json.dump(digests, f, indent=1, sort_keys=True)
+        print(f"{len(digests)} output digests written to {args.digests}",
+              flush=True)
     _, infer_launches, _ = phase("inference", inference, sra, dev, card)
     train = phase("training", training, sra, dev, card, args.train_steps)
     _, tool_k1, tool_k4 = phase("bench_roialign", bench_tool, sra)
@@ -1011,7 +1062,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"multilevel_roi_align_window": k3["launches"]},
         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-        "bound_by": "bytes", "library_ms": None, "by_case": k3["by_case"]})
+        "store_floor_ms": k3["store_floor_ms"], "bound_by": "bytes",
+        "library_ms": None, "by_case": k3["by_case"]})
     entries.append({
         "name": "stereo_roi_align_atlas", "route": "cuda",
         "source": "stereo_rcnn_tpu_torch/csrc/stereo_roi_align_atlas.cu",

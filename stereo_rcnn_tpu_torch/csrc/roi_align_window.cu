@@ -21,19 +21,51 @@
 // What bounds it on an H100: memory traffic.  It writes P * P * C float32
 // per roi (50 KB at P = 7, C = 256) and reads the levels of one side; the
 // taps of a roi touch at most (P * s + 1)^2 distinct cells, and the rois of
-// one image overlap, so the reads should mostly hit in the 50 MB L2.
-// Design as K1's (csrc/stereo_roi_align.cu): one block per (image, roi);
-// each thread owns two neighbouring channels; the taps are computed once per
-// block into shared memory.  No wgmma, TMA or tuning yet.
+// one image overlap, so the reads should mostly hit in the 50 MB L2.  At
+// (P, s) = (7, 2) it stores only 241 MB for 16 x 300 rois but issues 16 tap
+// loads per bin, about 1.9 GB of loads, most of them hits in L2 or L1.
+// The first port (one block of at most 128 threads per roi, two
+// channels per thread, 4-byte tap loads, each thread walking all P * P
+// bins, plain 8-byte stores) took 0.542-0.548 ms at (7, 2) and 0.857-0.878
+// ms at (14, 1), batch 16 x 300 rois, C = 256, bf16 levels ("NVIDIA H100
+// 80GB HBM3, 700.00 W"), against bounds of 0.172 and 0.387 ms.  The design
+// now, K1's and K4's:
+// - one block per (image, roi), the taps computed once per block into
+//   shared memory;
+// - each lane owns kVec = 8 neighbouring channels (vec.cuh): one 16-byte
+//   load per bf16 tap, two float4 loads per float32 tap; a C that is not a
+//   multiple of 8 (or a level that is not 16-byte aligned) takes 2-channel
+//   lanes, the same kernel with kVec = 2, chosen by the C entry;
+// - the block's ~256 threads are (C / kVec) lanes x groups; group g takes
+//   the bins g, g + groups, ... of the P x P;
+// - each bin is stored as float4 with __stcs, streaming past L2.
+// Each channel's arithmetic is the first port's, term for term (y first,
+// then x, the samples summed in (dy, dx) order, then divided by s * s), so
+// the outputs are the same bits.
+// Timed by chip_smoke.py (phase 5) at batch 16 x 300 rois, C = 256, in
+// turns with the first port in one call ("NVIDIA H100 80GB HBM3, 700.00 W"):
+// bf16 levels (7, 2) 0.261 ms (first port 0.540) and (14, 1) 0.516-0.518 ms
+// (0.881-0.887), against bounds of 0.172 and 0.387 ms and 0.077 and
+// 0.294-0.296 ms for the store side alone (the output zeroed); float32
+// levels (7, 2) 0.372 (0.608-0.609) and (14, 1) 0.646-0.649 (1.036-1.040)
+// against 0.271 and 0.487 ms.  The outputs were the same bits as the first
+// port's (chip_smoke.py --digests).  Both cases met the aim of half the
+// bound (0.344 and 0.774 ms), so merging a bin's taps per distinct cell
+// (K4's right pool, another float32 order) was not tried.  What still
+// holds (7, 2) above its bound: 16 tap loads per bin, about 1.9 GB from L2
+// and L1 against 241 MB of output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 5;
 constexpr int kMaxSamples = 64;              // P * s per axis
+constexpr int kBlockThreads = 256;
 
 struct Levels {
   const void* feat[kMaxLevels];
@@ -50,27 +82,21 @@ struct Taps {
   float whi[kMaxSamples];
 };
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
-}
-
-template <typename T>
-__global__ void roi_align_window_kernel(Levels lv,
-                                        const int* __restrict__ meta,
-                                        const float* __restrict__ geom,
-                                        float* __restrict__ out, int n_rois,
-                                        int c, int p, int s) {
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kBlockThreads)
+    roi_align_window_kernel(Levels lv, const int* __restrict__ meta,
+                            const float* __restrict__ geom,
+                            float* __restrict__ out, int n_rois, int c,
+                            int p, int s) {
   const int roi = blockIdx.x;                // b * n_rois + r
   const int b = roi / n_rois;
   const int n = p * s;
   __shared__ Taps taps[2];                   // [y, x]
 
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int n_threads = blockDim.x * blockDim.y;
   const int level = meta[roi * 4];
-  for (int t = threadIdx.x; t < 2 * n; t += blockDim.x) {
+  for (int t = tid; t < 2 * n; t += n_threads) {
     const int axis = t / n;                  // 0: y, 1: x
     const int k = t % n;
     const int win = axis == 0 ? lv.win_h[level] : lv.win_w[level];
@@ -98,41 +124,49 @@ __global__ void roi_align_window_kernel(Levels lv,
   const Taps& ty = taps[0];
   const Taps& tx = taps[1];
 
-  for (int ch = 2 * threadIdx.x; ch < c; ch += 2 * blockDim.x) {
-    for (int py = 0; py < p; ++py) {
-      for (int px = 0; px < p; ++px) {
-        float ax = 0.0f, ay = 0.0f;
-        if (valid) {
-          for (int dy = 0; dy < s; ++dy) {
-            const int i = py * s + dy;
-            const size_t r0 = static_cast<size_t>(ty.lo[i]) * w;
-            const size_t r1 = static_cast<size_t>(ty.hi[i]) * w;
-            const float wyl = ty.wlo[i], wyh = ty.whi[i];
-            for (int dx = 0; dx < s; ++dx) {
-              const int j = px * s + dx;
-              const int x0 = tx.lo[j], x1 = tx.hi[j];
-              const float2 v00 = load2(img + (r0 + x0) * c + ch);
-              const float2 v01 = load2(img + (r0 + x1) * c + ch);
-              const float2 v10 = load2(img + (r1 + x0) * c + ch);
-              const float2 v11 = load2(img + (r1 + x1) * c + ch);
-              // y first, then x: the order of the TPU kernel's two hat
-              // contractions.
-              const float wxl = tx.wlo[j], wxh = tx.whi[j];
-              ax += wxl * (wyl * v00.x + wyh * v10.x) +
-                    wxh * (wyl * v01.x + wyh * v11.x);
-              ay += wxl * (wyl * v00.y + wyh * v10.y) +
-                    wxh * (wyl * v01.y + wyh * v11.y);
+  for (int ch = threadIdx.x * kVec; ch < c; ch += blockDim.x * kVec) {
+    for (int bin = threadIdx.y; bin < p * p; bin += blockDim.y) {
+      const int py = bin / p, px = bin % p;
+      Vec<kVec> acc = zero_vec<kVec>();
+      if (valid) {
+        for (int dy = 0; dy < s; ++dy) {
+          const int i = py * s + dy;
+          const size_t r0 = static_cast<size_t>(ty.lo[i]) * w;
+          const size_t r1 = static_cast<size_t>(ty.hi[i]) * w;
+          const float wyl = ty.wlo[i], wyh = ty.whi[i];
+          for (int dx = 0; dx < s; ++dx) {
+            const int j = px * s + dx;
+            const int x0 = tx.lo[j], x1 = tx.hi[j];
+            const Vec<kVec> v00 = load_vec<kVec>(img + (r0 + x0) * c + ch);
+            const Vec<kVec> v01 = load_vec<kVec>(img + (r0 + x1) * c + ch);
+            const Vec<kVec> v10 = load_vec<kVec>(img + (r1 + x0) * c + ch);
+            const Vec<kVec> v11 = load_vec<kVec>(img + (r1 + x1) * c + ch);
+            // y first, then x: the order of the TPU kernel's two hat
+            // contractions.
+            const float wxl = tx.wlo[j], wxh = tx.whi[j];
+#pragma unroll
+            for (int v = 0; v < kVec; ++v) {
+              acc.v[v] += wxl * (wyl * v00.v[v] + wyh * v10.v[v]) +
+                          wxh * (wyl * v01.v[v] + wyh * v11.v[v]);
             }
           }
-          ax = __fdiv_rn(ax, count);
-          ay = __fdiv_rn(ay, count);
         }
-        *reinterpret_cast<float2*>(
-            blk + static_cast<size_t>(py * p + px) * c + ch) =
-            make_float2(ax, ay);
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) acc.v[v] = __fdiv_rn(acc.v[v], count);
       }
+      store_vec(blk + static_cast<size_t>(bin) * c + ch, acc);
     }
   }
+}
+
+// Groups of lanes over the P x P bins.
+template <typename T, int kVec>
+void launch(int blocks, int c, int p, int s, cudaStream_t st,
+            const Levels& lv, const int* meta, const float* geom,
+            float* out, int n_rois) {
+  roi_align_window_kernel<T, kVec>
+      <<<blocks, lane_groups(c, kVec, kBlockThreads, p * p), 0, st>>>(
+          lv, meta, geom, out, n_rois, c, p, s);
 }
 
 }  // namespace
@@ -141,8 +175,10 @@ __global__ void roi_align_window_kernel(Levels lv,
 // to NHWC levels [B, h, w, C]; level_hw / win_hw: host arrays (h0, w0, h1,
 // w1, ...); meta: int32 [B, R, 4] (level, y0, x0, valid) and geom: float32
 // [B, R, 4] (y1, x1, bin_h, bin_w) on the device; out: float32
-// [B, R, P, P, C].  n_levels <= 5, P * s <= 64, C even.  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for sizes it does not take.
+// [B, R, P, P, C].  n_levels <= 5, P * s <= 64, C even: 8-channel lanes
+// where C is a multiple of 8 and every level and the output are 16-byte
+// aligned, else 2-channel lanes.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for sizes it does not take.
 extern "C" int roi_align_window_fwd(const void* const* feats,
                                     const int* level_hw, const int* win_hw,
                                     int n_levels, const int* meta,
@@ -154,6 +190,7 @@ extern "C" int roi_align_window_fwd(const void* const* feats,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Levels lv;
+  bool wide = c % 8 == 0 && aligned16(out);
   for (int l = 0; l < kMaxLevels; ++l) {
     const int k = l < n_levels ? l : 0;
     lv.feat[l] = feats[k];
@@ -161,18 +198,21 @@ extern "C" int roi_align_window_fwd(const void* const* feats,
     lv.w[l] = level_hw[2 * k + 1];
     lv.win_h[l] = win_hw[2 * k];
     lv.win_w[l] = win_hw[2 * k + 1];
+    wide = wide && aligned16(feats[k]);
   }
   const int blocks = batch * n_rois;
-  if (blocks == 0) return static_cast<int>(cudaSuccess);
-  int threads = ((c / 2 + 31) / 32) * 32;
-  threads = threads > 128 ? 128 : threads;
+  if (blocks == 0 || c == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    roi_align_window_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        lv, meta, geom, out, n_rois, c, p, s);
+  if (is_bf16 && wide) {
+    launch<__nv_bfloat16, 8>(blocks, c, p, s, st, lv, meta, geom, out,
+                             n_rois);
+  } else if (is_bf16) {
+    launch<__nv_bfloat16, 2>(blocks, c, p, s, st, lv, meta, geom, out,
+                             n_rois);
+  } else if (wide) {
+    launch<float, 8>(blocks, c, p, s, st, lv, meta, geom, out, n_rois);
   } else {
-    roi_align_window_kernel<float><<<blocks, threads, 0, st>>>(
-        lv, meta, geom, out, n_rois, c, p, s);
+    launch<float, 2>(blocks, c, p, s, st, lv, meta, geom, out, n_rois);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -73,17 +73,43 @@
 // consecutive blocks belong to one image, so most taps should hit in the
 // 50 MB L2: the bf16 pyramids of both sides are 0.67 GB at batch 16, read
 // about once from device memory.
-// The design follows from that: one block per (image, roi); each thread owns
-// two neighbouring channels, so a warp reads 128 contiguous bytes of a bf16
-// NHWC row per tap and stores 256 contiguous bytes of float32 per output
-// row; the taps of each side (and, in the kron modes, the rounded weights)
-// are computed once per block into shared memory; the 2x2 means are formed
-// in registers, so the right side's samples are never stored.  No wgmma,
-// TMA or tuning yet.
+// The first port (one block of at most 128 threads per roi, two
+// channels per thread, 4-byte tap loads, each thread walking all 98 bins,
+// plain 8-byte stores) took 1.102-1.108 ms in f32, 1.120-1.124 kron_bf16,
+// 1.122-1.135 kron_hilo, 1.113-1.117 bf16 and 1.312-1.320 hilo at batch
+// 16 x 300 rois, C = 256, bf16 levels ("NVIDIA H100 80GB HBM3, 700.00 W"),
+// against a 0.631 ms bound; its plain stores evicted from L2 the pyramid
+// the taps re-read.  The design now, K4's (csrc/stereo_roi_align_atlas.cu):
+// - one block per (image, roi); the taps of each side (and the mode's
+//   weights) computed once per block into shared memory;
+// - each lane owns kVec = 8 neighbouring channels (vec.cuh): one 16-byte
+//   load per bf16 tap, two float4 loads per float32 tap; a C that is not a
+//   multiple of 8 (or a level that is not 16-byte aligned) takes 2-channel
+//   lanes, the same kernel with kVec = 2, chosen by the C entry;
+// - the block's ~256 threads are (C / kVec) lanes x groups; group g takes
+//   the 7x7 bins g, g + groups, ...: a bin's 2x2 left samples, their mean
+//   and the right bin's pool;
+// - all 294 rows are stored as float4 with __stcs, so the 1.45 GB of output
+//   streams past L2.
+// Each channel's arithmetic is the first port's, term for term, so the
+// outputs are the same bits in every mode.
+// Timed by chip_smoke.py (phase 3) at batch 16 x 300 rois, C = 256, bf16
+// levels, in turns with the first port in one call ("NVIDIA H100 80GB
+// HBM3, 700.00 W"): f32 0.881-0.883 ms (first port 1.107-1.110), kron_bf16
+// 0.899-0.908 (1.131), kron_hilo 0.907-0.920 (1.110-1.132), bf16
+// 0.855-0.864 (1.097-1.125), hilo 0.954-0.955 (1.314-1.320), against the
+// 0.631 ms bound and 0.439 ms for the store side alone (the output
+// zeroed).  The outputs of all five modes were the same bits as the first
+// port's (chip_smoke.py --digests).  What still holds it above the bound:
+// the taps' re-reads of the pyramid from L2 and L1 (16 loads per bin on
+// each side) and, in hilo, a second y-pass and three x-products per
+// column; not measured without a profiler of the card's counters.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "vec.cuh"
 
 namespace {
 
@@ -132,17 +158,7 @@ struct BinTaps {
   float w2[kP][4];
 };
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
-}
-
-__device__ __forceinline__ void store2(float* p, float2 v) {
-  *reinterpret_cast<float2*>(p) = v;
-}
+constexpr int kBlockThreads = 256;
 
 // Sample position y1 + (k + 0.5) * bin, rounded once, clamped to
 // [0, win - 1] (k is the sample's index on the 14-sample grid).
@@ -188,99 +204,112 @@ __device__ __forceinline__ float split_hat(float w, float* w2) {
 
 // One f32 sample: y first, then x (the order of the TPU kernel's two hat
 // contractions).
-template <typename T>
-__device__ __forceinline__ float2 sample(const T* img, int w, int c,
-                                         int ch, const Taps& ty,
-                                         const Taps& tx, int i, int j) {
+template <int kVec, typename T>
+__device__ __forceinline__ Vec<kVec> sample(const T* img, int w, int c,
+                                            int ch, const Taps& ty,
+                                            const Taps& tx, int i, int j) {
   const size_t r0 = static_cast<size_t>(ty.lo[i]) * w;
   const size_t r1 = static_cast<size_t>(ty.hi[i]) * w;
   const int x0 = tx.lo[j], x1 = tx.hi[j];
-  const float2 v00 = load2(img + (r0 + x0) * c + ch);
-  const float2 v01 = load2(img + (r0 + x1) * c + ch);
-  const float2 v10 = load2(img + (r1 + x0) * c + ch);
-  const float2 v11 = load2(img + (r1 + x1) * c + ch);
+  const Vec<kVec> v00 = load_vec<kVec>(img + (r0 + x0) * c + ch);
+  const Vec<kVec> v01 = load_vec<kVec>(img + (r0 + x1) * c + ch);
+  const Vec<kVec> v10 = load_vec<kVec>(img + (r1 + x0) * c + ch);
+  const Vec<kVec> v11 = load_vec<kVec>(img + (r1 + x1) * c + ch);
   const float wyl = ty.wlo[i], wyh = ty.whi[i];
   const float wxl = tx.wlo[j], wxh = tx.whi[j];
-  const float t0x = wyl * v00.x + wyh * v10.x;
-  const float t0y = wyl * v00.y + wyh * v10.y;
-  const float t1x = wyl * v01.x + wyh * v11.x;
-  const float t1y = wyl * v01.y + wyh * v11.y;
-  return make_float2(wxl * t0x + wxh * t1x, wxl * t0y + wxh * t1y);
+  Vec<kVec> s;
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    const float t0 = wyl * v00.v[v] + wyh * v10.v[v];
+    const float t1 = wyl * v01.v[v] + wyh * v11.v[v];
+    s.v[v] = wxl * t0 + wxh * t1;
+  }
+  return s;
 }
 
 // One kron sample of the left side: its 2x2 cells with their rounded
 // weights wk = (lo,lo), (lo,hi), (hi,lo), (hi,hi).
-template <typename T>
-__device__ __forceinline__ float2 sample_kron(const T* img, int w, int c,
-                                              int ch, const Taps& ty,
-                                              const Taps& tx, int i, int j,
-                                              const float* wk) {
+template <int kVec, typename T>
+__device__ __forceinline__ Vec<kVec> sample_kron(const T* img, int w, int c,
+                                                 int ch, const Taps& ty,
+                                                 const Taps& tx, int i, int j,
+                                                 const float* wk) {
   const size_t r0 = static_cast<size_t>(ty.lo[i]) * w;
   const size_t r1 = static_cast<size_t>(ty.hi[i]) * w;
   const int x0 = tx.lo[j], x1 = tx.hi[j];
-  const float2 v00 = load2(img + (r0 + x0) * c + ch);
-  const float2 v01 = load2(img + (r0 + x1) * c + ch);
-  const float2 v10 = load2(img + (r1 + x0) * c + ch);
-  const float2 v11 = load2(img + (r1 + x1) * c + ch);
-  return make_float2(
-      wk[0] * v00.x + wk[1] * v01.x + wk[2] * v10.x + wk[3] * v11.x,
-      wk[0] * v00.y + wk[1] * v01.y + wk[2] * v10.y + wk[3] * v11.y);
+  const Vec<kVec> v00 = load_vec<kVec>(img + (r0 + x0) * c + ch);
+  const Vec<kVec> v01 = load_vec<kVec>(img + (r0 + x1) * c + ch);
+  const Vec<kVec> v10 = load_vec<kVec>(img + (r1 + x0) * c + ch);
+  const Vec<kVec> v11 = load_vec<kVec>(img + (r1 + x1) * c + ch);
+  Vec<kVec> s;
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    s.v[v] = wk[0] * v00.v[v] + wk[1] * v01.v[v] + wk[2] * v10.v[v] +
+             wk[3] * v11.v[v];
+  }
+  return s;
 }
 
-__device__ __forceinline__ float2 fma2(float w, float2 v, float2 acc) {
-  return make_float2(__fmaf_rn(w, v.x, acc.x), __fmaf_rn(w, v.y, acc.y));
-}
-
-__device__ __forceinline__ float2 round_bf16(float2 v) {
-  return make_float2(round_bf16(v.x), round_bf16(v.y));
+template <int kVec>
+__device__ __forceinline__ void fma_vec(float w, const Vec<kVec>& x,
+                                        Vec<kVec>& acc) {
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) acc.v[v] = __fmaf_rn(w, x.v[v], acc.v[v]);
 }
 
 // One output of a two-matmul mode from kN touched rows and columns (2 per
 // left sample, 4 per right bin): for each column the y-pass over the rows,
 // rounded to bf16 ("bf16") or split into hi + lo ("hilo"), then the x-pass.
 // wy / wx are the rounded hats (hilo: hi parts; wy2 / wx2 the lo parts).
-template <int kMode, int kN, typename T>
-__device__ __forceinline__ float2 sample_2mm(
+template <int kMode, int kN, int kVec, typename T>
+__device__ __forceinline__ Vec<kVec> sample_2mm(
     const T* img, int w, int c, int ch, const int (&rows)[kN],
     const float (&wy)[kN], const float (&wy2)[kN], const int (&cols)[kN],
     const float (&wx)[kN], const float (&wx2)[kN]) {
-  const float2 zero = make_float2(0.0f, 0.0f);
-  float2 hh = zero, hl = zero, lh = zero;    // hilo: the three x-passes
+  // hilo: the three x-passes
+  Vec<kVec> hh = zero_vec<kVec>(), hl = zero_vec<kVec>(),
+            lh = zero_vec<kVec>();
 #pragma unroll
   for (int l = 0; l < kN; ++l) {
-    float2 a = zero, b = zero;               // y-passes (hilo: hi and lo)
+    // y-passes (hilo: hi and lo)
+    Vec<kVec> a = zero_vec<kVec>(), b = zero_vec<kVec>();
 #pragma unroll
     for (int k = 0; k < kN; ++k) {
-      const float2 v =
-          load2(img + (static_cast<size_t>(rows[k]) * w + cols[l]) * c + ch);
-      a = fma2(wy[k], v, a);
-      if (kMode == kHilo) b = fma2(wy2[k], v, b);
+      const Vec<kVec> x = load_vec<kVec>(
+          img + (static_cast<size_t>(rows[k]) * w + cols[l]) * c + ch);
+      fma_vec(wy[k], x, a);
+      if (kMode == kHilo) fma_vec(wy2[k], x, b);
     }
-    if (kMode == kBf16) {
-      hh = fma2(wx[l], round_bf16(a), hh);
-    } else {
-      const float2 t = make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
-      const float2 t_hi = round_bf16(t);
-      const float2 t_lo = round_bf16(make_float2(__fsub_rn(t.x, t_hi.x),
-                                                 __fsub_rn(t.y, t_hi.y)));
-      hh = fma2(wx[l], t_hi, hh);
-      hl = fma2(wx[l], t_lo, hl);
-      lh = fma2(wx2[l], t_hi, lh);
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      if (kMode == kBf16) {
+        hh.v[v] = __fmaf_rn(wx[l], round_bf16(a.v[v]), hh.v[v]);
+      } else {
+        const float t = __fadd_rn(a.v[v], b.v[v]);
+        const float t_hi = round_bf16(t);
+        const float t_lo = round_bf16(__fsub_rn(t, t_hi));
+        hh.v[v] = __fmaf_rn(wx[l], t_hi, hh.v[v]);
+        hl.v[v] = __fmaf_rn(wx[l], t_lo, hl.v[v]);
+        lh.v[v] = __fmaf_rn(wx2[l], t_hi, lh.v[v]);
+      }
     }
   }
-  if (kMode == kBf16) return hh;
-  return make_float2(__fadd_rn(__fadd_rn(hh.x, hl.x), lh.x),
-                     __fadd_rn(__fadd_rn(hh.y, hl.y), lh.y));
+  if (kMode == kHilo) {
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      hh.v[v] = __fadd_rn(__fadd_rn(hh.v[v], hl.v[v]), lh.v[v]);
+    }
+  }
+  return hh;
 }
 
-template <typename T, int kMode>
-__global__ void stereo_roi_align_kernel(Pyramids pyr,
-                                        const int* __restrict__ meta_l,
-                                        const float* __restrict__ geom_l,
-                                        const int* __restrict__ meta_r,
-                                        const float* __restrict__ geom_r,
-                                        float* __restrict__ out, int n_rois,
-                                        int c) {
+template <typename T, int kMode, int kVec>
+__global__ void __launch_bounds__(kBlockThreads)
+    stereo_roi_align_kernel(Pyramids pyr, const int* __restrict__ meta_l,
+                            const float* __restrict__ geom_l,
+                            const int* __restrict__ meta_r,
+                            const float* __restrict__ geom_r,
+                            float* __restrict__ out, int n_rois, int c) {
   constexpr bool kKron = kMode == kKronBf16 || kMode == kKronHilo;
   constexpr bool kTwoMM = kMode == kBf16 || kMode == kHilo;
   const int roi = blockIdx.x;                // b * n_rois + r
@@ -292,9 +321,11 @@ __global__ void stereo_roi_align_kernel(Pyramids pyr,
   __shared__ int s_level[2];
   __shared__ int s_valid[2];
 
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int n_threads = blockDim.x * blockDim.y;
   // 2 sides x 2 axes x 14 positions; in all modes but f32 the right side's
   // entries are its 7 bins per axis instead.
-  for (int t = threadIdx.x; t < 2 * 2 * kPk; t += blockDim.x) {
+  for (int t = tid; t < 2 * 2 * kPk; t += n_threads) {
     const int side = t / (2 * kPk);
     const int axis = (t / kPk) % 2;          // 0: y, 1: x
     const int i = t % kPk;
@@ -352,7 +383,7 @@ __global__ void stereo_roi_align_kernel(Pyramids pyr,
   if (kKron) {
     // Rounded combined weights: left (avg 1) per sample and tap; right
     // (avg 2) per bin and (row, column) pair, scaled by 1 / avg^2.
-    for (int t = threadIdx.x; t < kKpt * 4 + kP * kP * 16; t += blockDim.x) {
+    for (int t = tid; t < kKpt * 4 + kP * kP * 16; t += n_threads) {
       if (t < kKpt * 4) {
         const int s = t / 4, k = t % 4;
         const int i = s / kPk, j = s % kPk;
@@ -378,105 +409,106 @@ __global__ void stereo_roi_align_kernel(Pyramids pyr,
   const T* img_r = static_cast<const T*>(pyr.right[lvl_r]) +
                    static_cast<size_t>(b) * pyr.h[lvl_r] * pyr.w[lvl_r] * c;
   const int w_l = pyr.w[lvl_l], w_r = pyr.w[lvl_r];
-  const float2 zero = make_float2(0.0f, 0.0f);
+  const bool valid_l = s_valid[0] != 0, valid_r = s_valid[1] != 0;
 
-  for (int ch = 2 * threadIdx.x; ch < c; ch += 2 * blockDim.x) {
-    // Left: 196 samples, then their 2x2 means.
-    for (int py = 0; py < kP; ++py) {
-      for (int px = 0; px < kP; ++px) {
-        float2 acc = zero;
+  for (int ch = threadIdx.x * kVec; ch < c; ch += blockDim.x * kVec) {
+    for (int bin = threadIdx.y; bin < kP * kP; bin += blockDim.y) {
+      const int py = bin / kP, px = bin % kP;
+      // Left: the bin's 2x2 samples (kpt rows), then their mean.
+      Vec<kVec> acc = zero_vec<kVec>();
+      for (int dy = 0; dy < 2; ++dy) {
+        for (int dx = 0; dx < 2; ++dx) {
+          const int i = 2 * py + dy, j = 2 * px + dx;
+          Vec<kVec> s = zero_vec<kVec>();
+          if (valid_l && kTwoMM) {
+            const Taps& ty = taps[0][0];
+            const Taps& tx = taps[0][1];
+            s = sample_2mm<kMode, 2, kVec>(
+                img_l, w_l, c, ch, {ty.lo[i], ty.hi[i]},
+                {ty.wlo[i], ty.whi[i]}, {ty.wlo2[i], ty.whi2[i]},
+                {tx.lo[j], tx.hi[j]}, {tx.wlo[j], tx.whi[j]},
+                {tx.wlo2[j], tx.whi2[j]});
+          } else if (valid_l) {
+            s = kKron ? sample_kron<kVec>(img_l, w_l, c, ch, taps[0][0],
+                                          taps[0][1], i, j,
+                                          w_left[i * kPk + j])
+                      : sample<kVec>(img_l, w_l, c, ch, taps[0][0],
+                                     taps[0][1], i, j);
+          }
+          store_vec(blk + static_cast<size_t>(i * kPk + j) * c + ch, s);
+#pragma unroll
+          for (int v = 0; v < kVec; ++v) acc.v[v] += s.v[v];
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) acc.v[v] = acc.v[v] * 0.25f;
+      store_vec(blk + static_cast<size_t>(kKpt + bin) * c + ch, acc);
+      // Right: the 7x7 pool only.
+      acc = zero_vec<kVec>();
+      if (valid_r && kKron) {
+        const float* wk = w_right[bin];
+        for (int k = 0; k < 4; ++k) {
+          const T* row = img_r + static_cast<size_t>(bins[0].cell[py][k]) *
+                                     w_r * c + ch;
+          for (int l = 0; l < 4; ++l) {
+            const Vec<kVec> x = load_vec<kVec>(
+                row + static_cast<size_t>(bins[1].cell[px][l]) * c);
+#pragma unroll
+            for (int v = 0; v < kVec; ++v) {
+              acc.v[v] += wk[k * 4 + l] * x.v[v];
+            }
+          }
+        }
+      } else if (valid_r && kTwoMM) {
+        const BinTaps& by = bins[0];
+        const BinTaps& bx = bins[1];
+        acc = sample_2mm<kMode, 4, kVec>(
+            img_r, w_r, c, ch,
+            {by.cell[py][0], by.cell[py][1], by.cell[py][2], by.cell[py][3]},
+            {by.w[py][0], by.w[py][1], by.w[py][2], by.w[py][3]},
+            {by.w2[py][0], by.w2[py][1], by.w2[py][2], by.w2[py][3]},
+            {bx.cell[px][0], bx.cell[px][1], bx.cell[px][2], bx.cell[px][3]},
+            {bx.w[px][0], bx.w[px][1], bx.w[px][2], bx.w[px][3]},
+            {bx.w2[px][0], bx.w2[px][1], bx.w2[px][2], bx.w2[px][3]});
+      } else if (valid_r) {
         for (int dy = 0; dy < 2; ++dy) {
           for (int dx = 0; dx < 2; ++dx) {
-            const int i = 2 * py + dy, j = 2 * px + dx;
-            float2 s = zero;
-            if (s_valid[0] && kTwoMM) {
-              const Taps& ty = taps[0][0];
-              const Taps& tx = taps[0][1];
-              s = sample_2mm<kMode, 2>(
-                  img_l, w_l, c, ch, {ty.lo[i], ty.hi[i]},
-                  {ty.wlo[i], ty.whi[i]}, {ty.wlo2[i], ty.whi2[i]},
-                  {tx.lo[j], tx.hi[j]}, {tx.wlo[j], tx.whi[j]},
-                  {tx.wlo2[j], tx.whi2[j]});
-            } else if (s_valid[0]) {
-              s = kKron ? sample_kron(img_l, w_l, c, ch, taps[0][0],
-                                      taps[0][1], i, j, w_left[i * kPk + j])
-                        : sample(img_l, w_l, c, ch, taps[0][0], taps[0][1],
-                                 i, j);
-            }
-            store2(blk + static_cast<size_t>(i * kPk + j) * c + ch, s);
-            acc.x += s.x;
-            acc.y += s.y;
+            const Vec<kVec> s = sample<kVec>(img_r, w_r, c, ch, taps[1][0],
+                                             taps[1][1], 2 * py + dy,
+                                             2 * px + dx);
+#pragma unroll
+            for (int v = 0; v < kVec; ++v) acc.v[v] += s.v[v];
           }
         }
-        store2(blk + static_cast<size_t>(kKpt + py * kP + px) * c + ch,
-               make_float2(acc.x * 0.25f, acc.y * 0.25f));
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) acc.v[v] = acc.v[v] * 0.25f;
       }
-    }
-    // Right: the 7x7 pool only.
-    for (int py = 0; py < kP; ++py) {
-      for (int px = 0; px < kP; ++px) {
-        float2 acc = zero;
-        if (s_valid[1] && kKron) {
-          const float* wk = w_right[py * kP + px];
-          for (int k = 0; k < 4; ++k) {
-            const T* row = img_r + static_cast<size_t>(bins[0].cell[py][k]) *
-                                       w_r * c + ch;
-            for (int l = 0; l < 4; ++l) {
-              const float2 v = load2(row + static_cast<size_t>(
-                                               bins[1].cell[px][l]) * c);
-              acc.x += wk[k * 4 + l] * v.x;
-              acc.y += wk[k * 4 + l] * v.y;
-            }
-          }
-        } else if (s_valid[1] && kTwoMM) {
-          const BinTaps& by = bins[0];
-          const BinTaps& bx = bins[1];
-          acc = sample_2mm<kMode, 4>(
-              img_r, w_r, c, ch,
-              {by.cell[py][0], by.cell[py][1], by.cell[py][2], by.cell[py][3]},
-              {by.w[py][0], by.w[py][1], by.w[py][2], by.w[py][3]},
-              {by.w2[py][0], by.w2[py][1], by.w2[py][2], by.w2[py][3]},
-              {bx.cell[px][0], bx.cell[px][1], bx.cell[px][2], bx.cell[px][3]},
-              {bx.w[px][0], bx.w[px][1], bx.w[px][2], bx.w[px][3]},
-              {bx.w2[px][0], bx.w2[px][1], bx.w2[px][2], bx.w2[px][3]});
-        } else if (s_valid[1]) {
-          for (int dy = 0; dy < 2; ++dy) {
-            for (int dx = 0; dx < 2; ++dx) {
-              const float2 s = sample(img_r, w_r, c, ch, taps[1][0],
-                                      taps[1][1], 2 * py + dy, 2 * px + dx);
-              acc.x += s.x;
-              acc.y += s.y;
-            }
-          }
-          acc = make_float2(acc.x * 0.25f, acc.y * 0.25f);
-        }
-        store2(blk + static_cast<size_t>(kKpt + kP * kP + py * kP + px) * c +
-                   ch,
-               acc);
-      }
+      store_vec(blk + static_cast<size_t>(kKpt + kP * kP + bin) * c + ch,
+                acc);
     }
   }
 }
 
-template <typename T>
-void launch(int mode, int blocks, int threads, cudaStream_t s,
-            const Pyramids& pyr, const int* meta_l, const float* geom_l,
-            const int* meta_r, const float* geom_r, float* out, int n_rois,
-            int c) {
+// Groups of lanes over the 7x7 bins.
+template <typename T, int kVec>
+void launch(int mode, int blocks, cudaStream_t s, const Pyramids& pyr,
+            const int* meta_l, const float* geom_l, const int* meta_r,
+            const float* geom_r, float* out, int n_rois, int c) {
+  const dim3 threads = lane_groups(c, kVec, kBlockThreads, kP * kP);
   if (mode == kKronBf16) {
-    stereo_roi_align_kernel<T, kKronBf16><<<blocks, threads, 0, s>>>(
+    stereo_roi_align_kernel<T, kKronBf16, kVec><<<blocks, threads, 0, s>>>(
         pyr, meta_l, geom_l, meta_r, geom_r, out, n_rois, c);
   } else if (mode == kKronHilo) {
-    stereo_roi_align_kernel<T, kKronHilo><<<blocks, threads, 0, s>>>(
+    stereo_roi_align_kernel<T, kKronHilo, kVec><<<blocks, threads, 0, s>>>(
         pyr, meta_l, geom_l, meta_r, geom_r, out, n_rois, c);
   } else if (mode == kBf16) {
-    stereo_roi_align_kernel<T, kBf16><<<blocks, threads, 0, s>>>(
+    stereo_roi_align_kernel<T, kBf16, kVec><<<blocks, threads, 0, s>>>(
         pyr, meta_l, geom_l, meta_r, geom_r, out, n_rois, c);
   } else if (mode == kHilo) {
-    stereo_roi_align_kernel<T, kHilo><<<blocks, threads, 0, s>>>(
+    stereo_roi_align_kernel<T, kHilo, kVec><<<blocks, threads, 0, s>>>(
         pyr, meta_l, geom_l, meta_r, geom_r, out, n_rois, c);
   } else {
-    stereo_roi_align_kernel<T, kF32><<<blocks, threads, 0, s>>>(
+    stereo_roi_align_kernel<T, kF32, kVec><<<blocks, threads, 0, s>>>(
         pyr, meta_l, geom_l, meta_r, geom_r, out, n_rois, c);
   }
 }
@@ -488,7 +520,9 @@ void launch(int mode, int blocks, int threads, cudaStream_t s,
 // (h0, w0, h1, w1, ...); meta_*: int32 [B, R, 4] (level, y0, x0, valid) and
 // geom_*: float32 [B, R, 4] (y1, x1, bin_h, bin_w) on the device; out:
 // float32 [B, R, 294, C]; mode: 0 f32, 1 kron_bf16, 2 kron_hilo, 3 bf16,
-// 4 hilo.  C must be even.  Returns cudaGetLastError().
+// 4 hilo.  C must be even: 8-channel lanes where C is a multiple of 8 and
+// every level and the output are 16-byte aligned, else 2-channel lanes.
+// Returns cudaGetLastError().
 extern "C" int stereo_roi_align_fwd(const void* const* feats_l,
                                     const void* const* feats_r,
                                     const int* level_hw, const int* win_hw,
@@ -496,7 +530,9 @@ extern "C" int stereo_roi_align_fwd(const void* const* feats_l,
                                     const int* meta_r, const float* geom_r,
                                     float* out, int batch, int n_rois, int c,
                                     int is_bf16, int mode, void* stream) {
+  if (c % 2) return static_cast<int>(cudaErrorInvalidValue);
   Pyramids pyr;
+  bool wide = c % 8 == 0 && aligned16(out);
   for (int l = 0; l < kLevels; ++l) {
     pyr.left[l] = feats_l[l];
     pyr.right[l] = feats_r[l];
@@ -504,18 +540,23 @@ extern "C" int stereo_roi_align_fwd(const void* const* feats_l,
     pyr.w[l] = level_hw[2 * l + 1];
     pyr.win_h[l] = win_hw[2 * l];
     pyr.win_w[l] = win_hw[2 * l + 1];
+    wide = wide && aligned16(feats_l[l]) && aligned16(feats_r[l]);
   }
   const int blocks = batch * n_rois;
-  if (blocks == 0) return static_cast<int>(cudaSuccess);
-  int threads = ((c / 2 + 31) / 32) * 32;
-  threads = threads > 128 ? 128 : threads;
+  if (blocks == 0 || c == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    launch<__nv_bfloat16>(mode, blocks, threads, s, pyr, meta_l, geom_l,
-                          meta_r, geom_r, out, n_rois, c);
+  if (is_bf16 && wide) {
+    launch<__nv_bfloat16, 8>(mode, blocks, s, pyr, meta_l, geom_l, meta_r,
+                             geom_r, out, n_rois, c);
+  } else if (is_bf16) {
+    launch<__nv_bfloat16, 2>(mode, blocks, s, pyr, meta_l, geom_l, meta_r,
+                             geom_r, out, n_rois, c);
+  } else if (wide) {
+    launch<float, 8>(mode, blocks, s, pyr, meta_l, geom_l, meta_r, geom_r,
+                     out, n_rois, c);
   } else {
-    launch<float>(mode, blocks, threads, s, pyr, meta_l, geom_l, meta_r,
-                  geom_r, out, n_rois, c);
+    launch<float, 2>(mode, blocks, s, pyr, meta_l, geom_l, meta_r, geom_r,
+                     out, n_rois, c);
   }
   return static_cast<int>(cudaGetLastError());
 }

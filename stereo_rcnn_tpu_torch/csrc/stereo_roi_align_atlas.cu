@@ -38,8 +38,8 @@
 // 1.106 ms for the same bytes.  The design now:
 // - one block per (image, roi), the taps and the right pool's merged
 //   weights computed once per block in shared memory (as K1);
-// - each thread owns kVec = 8 neighbouring channels: one 16-byte load of
-//   bf16 per tap, 16-byte float4 stores;
+// - each thread owns kVec = 8 neighbouring channels (vec.cuh, shared with
+//   K1 and K3): one 16-byte load of bf16 per tap, 16-byte float4 stores;
 // - the three outputs are stored with __stcs (cache-streaming), so they
 //   pass through L2 without evicting the pyramid the taps re-read;
 // - the block's threads are (C / kVec) x groups, about 256; group g takes
@@ -58,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "vec.cuh"
 
 namespace {
 
@@ -82,65 +84,21 @@ struct BinTaps {
   int n[kP];
 };
 
-struct Vec {
-  float v[kVec];
-};
-
-// Two bf16 (the first in the low half) to float32: a bf16 is the top half
-// of its float32.
-__device__ __forceinline__ void unpack2(uint32_t bits, float* v) {
-  v[0] = __uint_as_float(bits << 16);
-  v[1] = __uint_as_float(bits & 0xffff0000u);
-}
-
-__device__ __forceinline__ Vec load_vec(const __nv_bfloat16* p) {
-  static_assert(kVec == 8, "one 16-byte load");
-  Vec r;
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  unpack2(u.x, r.v);
-  unpack2(u.y, r.v + 2);
-  unpack2(u.z, r.v + 4);
-  unpack2(u.w, r.v + 6);
-  return r;
-}
-
-__device__ __forceinline__ Vec load_vec(const float* p) {
-  Vec r;
-#pragma unroll
-  for (int q = 0; q < kVec / 4; ++q) {
-    const float4 f = __ldg(reinterpret_cast<const float4*>(p) + q);
-    r.v[4 * q] = f.x;
-    r.v[4 * q + 1] = f.y;
-    r.v[4 * q + 2] = f.z;
-    r.v[4 * q + 3] = f.w;
-  }
-  return r;
-}
-
-__device__ __forceinline__ void store_vec(float* p, const Vec& r) {
-#pragma unroll
-  for (int q = 0; q < kVec / 4; ++q) {
-    __stcs(reinterpret_cast<float4*>(p) + q,
-           make_float4(r.v[4 * q], r.v[4 * q + 1], r.v[4 * q + 2],
-                       r.v[4 * q + 3]));
-  }
-}
-
 // y first, then x, as K1 and the TPU kernel's two hat contractions.
 template <typename T>
-__device__ __forceinline__ Vec sample(const T* img, int w, int c,
+__device__ __forceinline__ Vec<kVec> sample(const T* img, int w, int c,
                                             int ch, const Taps& ty,
                                             const Taps& tx, int i, int j) {
   const size_t r0 = static_cast<size_t>(ty.lo[i]) * w;
   const size_t r1 = static_cast<size_t>(ty.hi[i]) * w;
   const int x0 = tx.lo[j], x1 = tx.hi[j];
-  const Vec v00 = load_vec(img + (r0 + x0) * c + ch);
-  const Vec v01 = load_vec(img + (r0 + x1) * c + ch);
-  const Vec v10 = load_vec(img + (r1 + x0) * c + ch);
-  const Vec v11 = load_vec(img + (r1 + x1) * c + ch);
+  const Vec<kVec> v00 = load_vec<kVec>(img + (r0 + x0) * c + ch);
+  const Vec<kVec> v01 = load_vec<kVec>(img + (r0 + x1) * c + ch);
+  const Vec<kVec> v10 = load_vec<kVec>(img + (r1 + x0) * c + ch);
+  const Vec<kVec> v11 = load_vec<kVec>(img + (r1 + x1) * c + ch);
   const float wyl = ty.wlo[i], wyh = ty.whi[i];
   const float wxl = tx.wlo[j], wxh = tx.whi[j];
-  Vec s;
+  Vec<kVec> s;
 #pragma unroll
   for (int v = 0; v < kVec; ++v) {
     const float t0 = wyl * v00.v[v] + wyh * v10.v[v];
@@ -240,13 +198,13 @@ __global__ void __launch_bounds__(kBlockThreads)
 
   for (int bin = threadIdx.y; bin < kP * kP; bin += blockDim.y) {
     const int py = bin / kP, px = bin % kP;
-    Vec acc_l, acc_r;
+    Vec<kVec> acc_l, acc_r;
 #pragma unroll
     for (int v = 0; v < kVec; ++v) acc_l.v[v] = acc_r.v[v] = 0.0f;
     for (int dy = 0; dy < 2; ++dy) {
       for (int dx = 0; dx < 2; ++dx) {
         const int i = 2 * py + dy, j = 2 * px + dx;
-        Vec s;
+        Vec<kVec> s;
         if (valid_l) {
           s = sample(img_l, atlas_w, c, ch, taps[0], taps[1], i, j);
         } else {
@@ -269,9 +227,8 @@ __global__ void __launch_bounds__(kBlockThreads)
             img_r + static_cast<size_t>(bins[0].cell[py][k]) * atlas_w * c +
             ch;
         for (int l = 0; l < nx; ++l) {
-          const Vec x =
-              load_vec(row + static_cast<size_t>(bins[1].cell[px][l]) *
-                                       c);
+          const Vec<kVec> x = load_vec<kVec>(
+              row + static_cast<size_t>(bins[1].cell[px][l]) * c);
           const float wt = wk[k * 4 + l];
 #pragma unroll
           for (int v = 0; v < kVec; ++v) {
@@ -289,10 +246,8 @@ int launch(int blocks, int c, cudaStream_t s, const void* atlas_l,
            const void* atlas_r, int atlas_h, int atlas_w, const int* meta_l,
            const float* geom_l, const int* meta_r, const float* geom_r,
            float* out14l, float* out7l, float* out7r, int n_rois) {
-  const int lanes = ((c / kVec + 31) / 32) * 32;
-  int groups = kBlockThreads / lanes;
-  groups = groups < 1 ? 1 : (groups > kP * kP ? kP * kP : groups);
-  stereo_roi_align_atlas_kernel<T><<<blocks, dim3(lanes, groups), 0, s>>>(
+  const dim3 threads = lane_groups(c, kVec, kBlockThreads, kP * kP);
+  stereo_roi_align_atlas_kernel<T><<<blocks, threads, 0, s>>>(
       static_cast<const T*>(atlas_l), static_cast<const T*>(atlas_r),
       atlas_h, atlas_w, meta_l, geom_l, meta_r, geom_r, out14l, out7l, out7r,
       n_rois, c);

@@ -2,7 +2,8 @@
 
 The library is compiled at first use for ``sm_90a`` into
 ``stereo_rcnn_tpu_torch/csrc/build/`` (git-ignored), under a name keyed by
-a hash of the source and the flags, so an edited source is rebuilt and an
+a hash of the source, the ``csrc`` headers it includes and the flags
+(:func:`library_path`), so an edited source or header is rebuilt and an
 unchanged one is loaded as it is.  Nothing here falls back: a missing
 ``nvcc`` or a failed build raises.  :class:`CudaKernel` binds one C entry
 of a source; :func:`on_device` picks a kernel or its plain version by the
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -48,14 +50,34 @@ def _nvcc() -> str:
                        f"{cuda_home}/bin); the CUDA kernels cannot be built")
 
 
+# A header of the sources' own directory: #include "name.cuh".
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"/]+)"', re.M)
+
+
+def library_path(source: str, csrc: str = CSRC) -> str:
+    """The build of ``<csrc>/<source>``: ``<csrc>/build/lib<stem>.<hash>.so``,
+    the hash taken over the flags, the source and every header of ``csrc``
+    that it includes, directly or through another header."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    todo, seen = [source], set()
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.add(name)
+        with open(os.path.join(csrc, name), "rb") as f:
+            text = f.read()
+        digest.update(name.encode() + b"\0" + text + b"\0")
+        todo.extend(m.decode() for m in _LOCAL_INCLUDE.findall(text))
+    stem = os.path.splitext(source)[0]
+    return os.path.join(csrc, "build",
+                        f"lib{stem}.{digest.hexdigest()[:16]}.so")
+
+
 def load_library(source: str) -> tuple[ctypes.CDLL, BuildInfo]:
     """Compile ``csrc/<source>`` if its hashed build is missing; load it."""
     src_path = os.path.join(CSRC, source)
-    with open(src_path, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    stem = os.path.splitext(source)[0]
-    lib_path = os.path.join(BUILD_DIR,
-                            f"lib{stem}.{digest.hexdigest()[:16]}.so")
+    lib_path = library_path(source)
     seconds, log = 0.0, ""
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)

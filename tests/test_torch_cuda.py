@@ -2,8 +2,11 @@
 
 K1 in every sampling-weight mode (the tool-only two-matmul modes too), its
 backward K2 (deterministic: two launches give the same bits), the windowed
-RoIAlign K3 and the atlas variant K4.  Every test here carries the ``cuda`` marker
-and skips without a CUDA device.  The file imports no JAX, so it runs on
+RoIAlign K3 and the atlas variant K4.  K1 and K3 are also checked at C = 36,
+which is not a multiple of 8 and so takes their 2-channel lanes (C = 256
+takes the 8-channel ones), and the two lane widths must give the same bits.
+Every test here carries the ``cuda`` marker and skips without a CUDA
+device.  The file imports no JAX, so it runs on
 a machine without it:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
@@ -37,14 +40,16 @@ def _k1_inputs(c, b=2, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 36])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k1_cuda_kernel_matches_plain(dtype):
+def test_k1_cuda_kernel_matches_plain(dtype, c):
     """The CUDA kernel against its plain version on the card, at the main
-    path's channel width.  1e-4: both read the same features; the two
-    differ only in fused multiply-adds."""
+    path's channel width (8-channel lanes) and at C = 36 (2-channel
+    lanes).  1e-4: both read the same features; the two differ only in
+    fused multiply-adds."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    fl, fr, rl, rr = _k1_inputs(256)
+    fl, fr, rl, rr = _k1_inputs(c)
     dev = torch.device("cuda")
     tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
     tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
@@ -103,15 +108,17 @@ def test_k2_cuda_kernel_matches_plain_backward(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 36])
 @pytest.mark.parametrize("hat", ["kron_bf16", "kron_hilo"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k1_kron_modes_match_plain(hat, dtype):
+def test_k1_kron_modes_match_plain(hat, dtype, c):
     """K1 in a kron mode against its plain version (the literal dense kron
-    matrix).  1e-5: both compute the same rounded weights, positions
-    rounded once; only the float32 sums' order differs."""
+    matrix), with 8- and 2-channel lanes.  1e-5: both compute the same
+    rounded weights, positions rounded once; only the float32 sums' order
+    differs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    fl, fr, rl, rr = _k1_inputs(256)
+    fl, fr, rl, rr = _k1_inputs(c)
     dev = torch.device("cuda")
     tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
     tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
@@ -140,14 +147,16 @@ def close_two_matmul(out, ref, feats):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 36])
 @pytest.mark.parametrize("hat", ["bf16", "hilo"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k1_two_matmul_modes_match_plain(hat, dtype):
+def test_k1_two_matmul_modes_match_plain(hat, dtype, c):
     """K1 in a tool-only two-matmul mode, through the kernel-level entry,
-    against its plain version; the public entry refuses the mode."""
+    against its plain version, with 8- and 2-channel lanes; the public
+    entry refuses the mode."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    fl, fr, rl, rr = _k1_inputs(256)
+    fl, fr, rl, rr = _k1_inputs(c)
     dev = torch.device("cuda")
     tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
     tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
@@ -201,15 +210,17 @@ def test_k2_is_deterministic_and_owns_each_cell():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 36])
 @pytest.mark.parametrize("p, s", [(7, 2), (14, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k3_cuda_kernel_matches_plain(p, s, dtype):
-    """K3 against its plain version, batched and unbatched.  1e-4, as K1:
-    the two differ only in fused multiply-adds."""
+def test_k3_cuda_kernel_matches_plain(p, s, dtype, c):
+    """K3 against its plain version, batched and unbatched, with 8- and
+    2-channel lanes.  1e-4, as K1: the two differ only in fused
+    multiply-adds."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from stereo_rcnn_tpu_torch.ops import roi_align_window as t_win
-    fl, _, rl, _ = _k1_inputs(256)
+    fl, _, rl, _ = _k1_inputs(c)
     dev = torch.device("cuda")
     feats = [torch.from_numpy(f).to(dev, dtype) for f in fl]
     rois = torch.from_numpy(rl).to(dev)
@@ -220,6 +231,42 @@ def test_k3_cuda_kernel_matches_plain(p, s, dtype):
         assert t_win.roi_align_window_kernel.launches == before + 1
         ref = t_win.multilevel_roi_align_window_ref(f_, r_, STRIDES, p, s)
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+def _shifted(t):
+    """A copy of ``t`` whose data starts two elements past its buffer's
+    start, so not on a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 2, dtype=t.dtype, device=t.device)
+    out = buf[2:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lane_width_keeps_the_bits(dtype):
+    """Levels that are not 16-byte aligned take K1's and K3's 2-channel
+    lanes; they give the same bits as the aligned levels' 8-channel lanes,
+    in every K1 mode: a lane's width changes how many channels a thread
+    handles, not what a channel computes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from stereo_rcnn_tpu_torch.ops import roi_align_window as t_win
+    fl, fr, rl, rr = _k1_inputs(256)
+    dev = torch.device("cuda")
+    tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
+    tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
+    sl, sr = [_shifted(f) for f in tl], [_shifted(f) for f in tr]
+    assert all(f.data_ptr() % 16 for f in sl + sr)
+    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
+    k1 = t_sra.stereo_roi_align_kernel
+    for hat in t_sra.TOOL_HAT_MODES:
+        assert torch.equal(k1(tl, tr, rl_t, rr_t, STRIDES, hat),
+                           k1(sl, sr, rl_t, rr_t, STRIDES, hat)), hat
+    for p, s in ((7, 2), (14, 1)):
+        assert torch.equal(
+            t_win.multilevel_roi_align_window(tl, rl_t, STRIDES, p, s),
+            t_win.multilevel_roi_align_window(sl, rl_t, STRIDES, p, s))
 
 
 @pytest.mark.cuda
