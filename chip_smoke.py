@@ -22,8 +22,9 @@ the CUDA toolkit (``nvcc``).  Phases, each raising on failure:
    wrapper call) beside a store-only floor (the output zeroed alone);
 4. K2 against its plain backward at the training shapes (batch 8, 128
    rois, C=256, bfloat16 levels) with edge-case rois; two launches must
-   give the same bits; timed beside the plain version and one
-   ``index_add_`` of the same scatter;
+   give the same bits; the same at C=34 (its 2-channel lanes); timed at
+   C=256 beside the plain version and one ``index_add_`` of the same
+   scatter;
 5. K3 through its entry point ``multilevel_roi_align_window`` (batched and
    unbatched) against its plain version at 1280x384, C=256, batch 16, 300
    rois, (P, s) = (7, 2) and (14, 1), bfloat16 and float32, timed beside
@@ -57,7 +58,18 @@ the CUDA toolkit (``nvcc``).  Phases, each raising on failure:
 10. the RoIAlign microbenchmark tool,
     ``stereo_rcnn_tpu_torch.tools.bench_roialign`` with ``--iters 5``: K1
     in each of its five modes, K4 (and its packing) and the gather; every
-    K1 mode and K4 must launch.
+    K1 mode and K4 must launch;
+11. the training and evaluation CLIs as a user runs them, at full width
+    (``synthetic_fullres_config()`` written as JSON, batch 8), with the
+    native host preprocessing built: a KITTI tree of 8 rendered frames at
+    1242x375 written as ``.npy`` (``data.synthetic.write_kitti_frame``);
+    ``tools.train`` for 2 epochs of 1 step (K1 and K2 launched twice,
+    finite losses, a checkpoint, the params export and ``config.json``),
+    then ``--resume --epochs 3`` (the restored state equal to the saved
+    one, tensor for tensor; one more step, K1 and K2 once); ``tools.test_net``
+    on the tree with the params export and ``tools.eval_synth --batches 1
+    --batch 4``, each printing its AP lines and launching K1; no plain
+    RoIAlign version runs.  Each CLI's wall seconds are printed.
 
 Times of the kernels' previous versions (the two-channel K1 and K3, the
 atomic K2, the two-channel K4 and the wrappers that copied their tables
@@ -72,9 +84,10 @@ Without a CUDA device it exits non-zero and prints no result.
     python3 chip_smoke.py --digests PATH
 
 also writes to PATH a JSON object of the sha256 of every output of K1,
-K3 and K4 that phases 3, 5 and 6 check, keyed by kernel, mode and
-shape: two builds that give the same file give the same bits on these
-inputs (the inputs come from a seeded generator).
+K2, K3 and K4 that phases 3 to 6 check, keyed by kernel, mode and shape:
+two builds that give the same file give the same bits on these inputs
+(the inputs come from a seeded generator).  The file is written before
+phase 7.
 
     python3 chip_smoke.py --training-only [--train-steps N]
 
@@ -87,14 +100,18 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import csv
 import dataclasses
 import hashlib
+import io
 import json
 import re
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from stereo_rcnn_tpu_torch.tools.bench_roialign import events_ms as _events_ms
@@ -323,9 +340,10 @@ def check_k1(sra, dev, gen, card, digests=None):
             for hat in sra.TOOL_HAT_MODES}
 
 
-def check_k2(sra, dev, gen, card):
+def check_k2(sra, dev, gen, card, digests=None):
     """Phase 4: K2 against its plain backward, deterministic, timed beside
-    ``index_add_``."""
+    ``index_add_``.  ``digests`` (a dict or None) takes the sha256 of every
+    level gradient."""
     k2 = sra.stereo_roi_align_bwd_kernel
     b, r, c = 8, 128, 256
     shapes = [(384 // s, 1280 // s) for s in STRIDES]
@@ -344,6 +362,11 @@ def check_k2(sra, dev, gen, card):
     if not all(torch.equal(x, y)
                for x, y in zip(d_l + d_r, again_l + again_r)):
         raise RuntimeError("K2: two launches differ")
+    if digests is not None:
+        for side, grads in (("left", d_l), ("right", d_r)):
+            for lvl, d in enumerate(grads):
+                digests[f"K2 B={b} R={r} C={c} {side} P{lvl + 2}"] = \
+                    _sha256(d)
     for lvl, (ours, ref) in enumerate(zip(d_l + d_r, r_l + r_r)):
         scale = ref.abs().max().item()
         e = (ours - ref).abs().max().item()
@@ -361,6 +384,25 @@ def check_k2(sra, dev, gen, card):
     print(f"K2 B={b} R={r} C={c}: max abs err {err:.3e} (tol "
           f"{TOL_BWD:.0e} x level max |grad|), two launches bit-identical, "
           f"zero-area rois inert", flush=True)
+    # C = 34 (not a multiple of 4) takes the 2-channel lanes; its own
+    # generator leaves the shared stream (and the later digests) as it was.
+    g34 = torch.randn(b, r, sra.ROWS, 34, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(34))
+    a34 = k2(g34, rl, rr, shapes, STRIDES)
+    b34 = k2(g34, rl, rr, shapes, STRIDES)
+    r34 = sra.stereo_roi_align_packed_bwd_ref(g34, rl, rr, shapes, STRIDES)
+    err34 = 0.0
+    for lvl, (x, y, ref) in enumerate(zip(a34[0] + a34[1], b34[0] + b34[1],
+                                          r34[0] + r34[1])):
+        e = (x - ref).abs().max().item()
+        if not (torch.equal(x, y) and e <= TOL_BWD * ref.abs().max().item()):
+            raise RuntimeError(f"K2 C=34 level {lvl}: max abs err {e:.3e}, "
+                               f"two launches equal {torch.equal(x, y)}")
+        err34 = max(err34, e)
+    print(f"K2 B={b} R={r} C=34 (2-channel lanes): max abs err {err34:.3e} "
+          f"(tol {TOL_BWD:.0e} x level max |grad|), two launches "
+          f"bit-identical", flush=True)
+    del g34, a34, b34, r34
     clocks = _clocks()
     ms = _device_ms(lambda: k2(*bargs), 20, "stereo_roi_align_bwd_kernel")
     call_ms = _events_ms(lambda: k2(*bargs), 20)
@@ -947,6 +989,144 @@ def bench_tool(sra):
     return lines, by_hat, k4.launches
 
 
+def _cli(name, fn, *args):
+    """``fn(*args)`` with its stdout captured and echoed; returns
+    ``(result, stdout, wall seconds)``."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    print("\n".join(f"  {name}| {line}" for line in out.splitlines()))
+    return res, out, wall
+
+
+def _same_state(state, saved, what):
+    """Raise unless ``state`` (a TrainState) equals the checkpoint dict
+    ``saved`` tensor for tensor."""
+    model = state.model.state_dict()
+    bad = [k for k in saved["model"]
+           if not torch.equal(model[k].cpu(), saved["model"][k])]
+    bad += [f"trace {k}" for k in saved["trace"]
+            if not torch.equal(state.trace[k].cpu(), saved["trace"][k])]
+    if (bad or set(model) != set(saved["model"]) or
+            set(state.trace) != set(saved["trace"]) or
+            state.step != saved["step"] or
+            not torch.equal(state.uncert.detach().cpu(), saved["uncert"])):
+        raise RuntimeError(f"tools: {what} differs from the checkpoint "
+                           f"({bad[:3]})")
+
+
+def tools(sra, dev, card):
+    """Phase 11: the training and evaluation CLIs as a user runs them, at
+    full width, on a rendered KITTI tree."""
+    import os
+    import shutil
+
+    from stereo_rcnn_tpu_torch.config import (save_config,
+                                              synthetic_fullres_config)
+    from stereo_rcnn_tpu_torch.data.synthetic import (random_scene,
+                                                      render_pair,
+                                                      write_kitti_frame)
+    from stereo_rcnn_tpu_torch.geometry.calib import default_kitti_calib
+    from stereo_rcnn_tpu_torch.tools import eval_synth, test_net, train
+    from stereo_rcnn_tpu_torch.train.checkpoint import checkpoint_path
+    from stereo_rcnn_tpu_torch.utils.host_preproc import native_available
+
+    t_phase = time.perf_counter()
+    if not native_available():
+        raise RuntimeError("tools: the native host preprocessing library "
+                           "did not build (csrc/host_preproc.cpp)")
+    k1, k2 = sra.stereo_roi_align_kernel, sra.stereo_roi_align_bwd_kernel
+    work = os.path.join("runs", "chip_smoke_tools")
+    shutil.rmtree(work, ignore_errors=True)
+    tree, ck = os.path.join(work, "kitti"), os.path.join(work, "ckpt")
+    cfg = synthetic_fullres_config()
+    cfg_json = os.path.join(work, "synthetic_fullres.json")
+    os.makedirs(work)
+    save_config(cfg, cfg_json)
+    t0 = time.perf_counter()
+    calib = default_kitti_calib()
+    rng = np.random.RandomState(11)
+    for i in range(8):
+        objs = random_scene(rng, 4, calib, 375, 1242)
+        left, right = render_pair(objs, calib, 375, 1242, rng)
+        write_kitti_frame(tree, f"{i:06d}", objs, calib, left, right)
+    walls = {"write tree": time.perf_counter() - t0}
+    launches = {"K1": 0, "K2": 0}
+
+    def counted(name, fn, *args):
+        k1.reset_counts()
+        k2.reset_counts()
+        with _PlainCalls(sra) as plain:
+            res, out, walls[name] = _cli(name, fn, *args)
+        if plain:
+            raise RuntimeError(f"tools: {name} ran plain versions {plain}")
+        got = {"K1": k1.launches, "K2": k2.launches}
+        for k, v in got.items():
+            launches[k] += v
+        return res, out, got
+
+    common = ["--config", cfg_json, "--kitti-root", tree, "--image-ext",
+              ".npy", "--batch-per-device", "8", "--ckpt-dir", ck,
+              "--disp-interval", "1"]
+    state2, _, got = counted("train", train.run,
+                             train.parse_args(common + ["--epochs", "2"]))
+    if state2.step != 2 or got != {"K1": 2, "K2": 2}:
+        raise RuntimeError(f"tools: train reached step {state2.step} with "
+                           f"launches {got} (expected 2 steps, 2 each)")
+    for f in (checkpoint_path(ck, 2), os.path.join(ck, "config.json"),
+              os.path.join(ck, "params_export", "params.pt")):
+        if not os.path.exists(f):
+            raise RuntimeError(f"tools: train wrote no {f}")
+    with open(os.path.join(ck, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    bad = [r for r in rows if not all(np.isfinite(float(v))
+                                      for k, v in r.items()
+                                      if k != "pairs_per_sec")]
+    if len(rows) != 2 or bad:
+        raise RuntimeError(f"tools: metrics.csv rows {rows}")
+    saved = torch.load(checkpoint_path(ck, 2), map_location="cpu",
+                       weights_only=True)
+    _same_state(state2, saved, "the trained state at step 2")
+    del state2
+    seen = []
+    state3, out, got = counted(
+        "resume", train.run,
+        train.parse_args(common + ["--epochs", "3", "--resume"]),
+        lambda st: (_same_state(st, saved, "the restored state"),
+                    seen.append(st.step)))
+    if (seen != [2] or state3.step != 3 or got != {"K1": 1, "K2": 1} or
+            "resumed from step 2" not in out):
+        raise RuntimeError(f"tools: resume restored {seen}, reached "
+                           f"{state3.step}, launches {got}")
+    del state3, saved
+    torch.cuda.empty_cache()
+    _, out, got = counted("test_net", test_net.main, [
+        "--kitti-root", tree, "--ckpt-dir", ck, "--out",
+        os.path.join(work, "results"), "--batch", "8", "--image-ext",
+        ".npy"])
+    if (got["K1"] < 1 or "AP_3d@0.7 (R40)" not in out or
+            "AP_bev@0.5 (R11)" not in out or "8 frames" not in out or
+            len(os.listdir(os.path.join(work, "results"))) != 8):
+        raise RuntimeError(f"tools: test_net launches {got}")
+    _, out, got = counted("eval_synth", eval_synth.main, [
+        "--ckpt-dir", ck, "--batches", "1", "--batch", "4"])
+    if got["K1"] < 1 or "AP_3d@0.5 (R40)" not in out or \
+            "restored step 3" not in out:
+        raise RuntimeError(f"tools: eval_synth launches {got}")
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"tools phase: {wall:.1f} s; " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()) +
+        f"; launches on the tools path {launches}; plain versions 0 calls; "
+        f"native host preprocessing: yes  [{card}]", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--training-only", action="store_true",
@@ -955,7 +1135,7 @@ def main(argv=None) -> int:
     parser.add_argument("--train-steps", type=int, default=3,
                         help="timed steps on the fused training path")
     parser.add_argument("--digests", metavar="PATH",
-                        help="write the sha256 of every K1, K3 and K4 "
+                        help="write the sha256 of every K1, K2, K3 and K4 "
                              "output checked to PATH (JSON)")
     args = parser.parse_args(argv)
     # -- 1. environment --------------------------------------------------
@@ -1009,7 +1189,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     digests = None if args.digests is None else {}
     k1 = phase("K1", check_k1, sra, dev, gen, card, digests)
-    k2 = phase("K2", check_k2, sra, dev, gen, card)
+    k2 = phase("K2", check_k2, sra, dev, gen, card, digests)
     k3 = phase("K3", check_k3, dev, gen, card, digests)
     k4 = phase("K4", check_k4, sra, dev, gen, card, digests)
     if digests is not None:
@@ -1020,6 +1200,7 @@ def main(argv=None) -> int:
     _, infer_launches, _ = phase("inference", inference, sra, dev, card)
     train = phase("training", training, sra, dev, card, args.train_steps)
     _, tool_k1, tool_k4 = phase("bench_roialign", bench_tool, sra)
+    cli = phase("tools", tools, sra, dev, card)
 
     total = time.perf_counter() - t_start
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
@@ -1032,6 +1213,7 @@ def main(argv=None) -> int:
                  if by_hat[hat]}
         if hat == "f32":
             paths["training"] = train["pallas"]["launches"]["K1"]
+            paths["tools"] = cli["K1"]
         paths["bench_roialign"] = tool_k1[hat]
         return paths
 
@@ -1048,6 +1230,7 @@ def main(argv=None) -> int:
                 for name, (_, n) in infer_launches.items()}
     k2_paths.update({f"training {impl}": t["launches"]["K2"]
                      for impl, t in train.items()})
+    k2_paths["tools"] = cli["K2"]
     entries.append({
         "name": "stereo_roi_align_bwd", "route": "cuda",
         "source": "stereo_rcnn_tpu_torch/csrc/stereo_roi_align_bwd.cu",

@@ -5,12 +5,14 @@ A field-for-field copy of ``stereo_rcnn_tpu.config``: the JAX package's
 without JAX.  ``tests/test_torch_bridges.py`` pins the two copies equal.
 Every "top-N" is a padded static size, as in the JAX package, so the two
 pipelines produce the same shapes.  PyYAML is imported only by
-:func:`load_config`, when a YAML file is given.
+:func:`load_config`, when a YAML file is given; the port writes and reads
+JSON (:func:`save_config`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Mapping, Sequence, Tuple
 
 
@@ -292,20 +294,36 @@ def parse_set_overrides(pairs: Sequence[str]) -> dict:
 def load_config(yaml_path: str | None = None,
                 overrides: Mapping[str, Any] | None = None,
                 base: Config | None = None) -> Config:
-    """Build a Config, optionally overlaying a YAML file then a dict.
+    """Build a Config, optionally overlaying a file then a dict.
 
     Mirrors the reference's ``cfg_from_file`` + ``cfg_from_list`` layering.
     ``base`` starts the overlay from an existing config instead of the
-    defaults (e.g. ``tiny_test_config()`` + a small YAML delta in tests).
+    defaults (e.g. ``tiny_test_config()`` + a small delta in tests).  A
+    ``.json`` file is read with the standard library (the port's own
+    format: :func:`save_config` writes it, and a host without PyYAML
+    reads it); any other file is YAML.  List values of tuple fields come
+    back as tuples, so a saved config loads equal to the original.
     """
     cfg = Config() if base is None else base
     if yaml_path is not None:
-        import yaml
         with open(yaml_path) as f:
-            cfg = _update_dataclass(cfg, yaml.safe_load(f) or {})
+            if yaml_path.endswith(".json"):
+                tree = json.load(f)
+            else:
+                import yaml
+                tree = yaml.safe_load(f)
+        cfg = _update_dataclass(cfg, tree or {})
     if overrides:
         cfg = _update_dataclass(cfg, overrides)
     return cfg
+
+
+def save_config(cfg: Config, path: str) -> None:
+    """Write ``cfg`` as JSON (``dataclasses.asdict``), which
+    :func:`load_config` reads back equal."""
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=1, sort_keys=True)
+        f.write("\n")
 
 
 def synthetic_fullres_config() -> Config:

@@ -38,8 +38,14 @@
 // summed in one fixed order and written once, with no atomics.
 // - One warp per (image, side, level, strip of kRowsW x kTileW cells,
 //   channel chunk).  Lane l owns kVec channels of every cell of the strip,
-//   in registers: kVec / 4 quads, quad q at channel 128 q + 4 l, so that
-//   each warp-wide load or store of a quad covers 512 contiguous bytes.
+//   in registers.  Where C % 4 == 0, kVec = 8: two quads, quad q at
+//   channel 128 q + 4 l, so that each warp-wide load or store of a quad
+//   covers 512 contiguous bytes.  Any other even C takes kVec = 2: one
+//   pair at channel 2 l, 8-byte accesses.  The width is a template
+//   parameter of the same kernel, chosen by the C entry (as K1's in
+//   stereo_roi_align.cu); it changes how many channels a lane carries,
+//   never the order in which a channel's terms are summed, so both widths
+//   give the same bits for the same channel.
 // - The warp lists the strip's hits once, in ascending roi order (4 x 32
 //   rois' loads in flight, a ballot per 32): the rois of its level, valid,
 //   whose tap rectangle meets the strip, with their window origin and
@@ -99,17 +105,8 @@ constexpr int kHitQ = 4;                     // hits in flight per warp
 constexpr int kUnitQ = 8;                    // units (cp.async groups)
 constexpr int kRowsW = 2;                    // cell rows per strip
 constexpr int kTileW = 4;                    // strip width in cells
-constexpr int kVec = 8;                      // channels per lane
 constexpr int kRing = 12;                    // cotangent vectors in the ring
-constexpr int kChunk = 32 * kVec;            // channels per warp
-constexpr int kQ = kVec / 4;                 // quads per lane
 constexpr int kCells = kRowsW * kTileW;
-static_assert(kVec % 4 == 0, "whole quads");
-// A unit takes at most kMaxCols sample columns, so that its vectors (kept
-// columns plus the pool bins they fall in) fit the ring.
-constexpr int kMaxCols =
-    2 * (kRing - 1) / 3 < kPk ? 2 * (kRing - 1) / 3 : kPk;
-static_assert(kMaxCols >= 2, "ring too small");
 
 struct Grads {
   float* left[kLevels];
@@ -122,32 +119,58 @@ struct Grads {
   int first_tile[kLevels];  // the level's first strip, coarsest level first
 };
 
+// A lane's channels: kVec = 8 as two quads (4 channels, one 16-byte
+// access each), kVec = 2 as one pair (one 8-byte access).
+template <int kVec>
+struct Lane {
+  static_assert(kVec == 2 || kVec == 8, "a pair or two quads");
+  static constexpr int kElem = kVec == 2 ? 2 : 4;  // channels per access
+  static constexpr int kQ = kVec / kElem;          // accesses per lane
+  static constexpr int kChunk = 32 * kVec;         // channels per warp
+  // A unit takes at most kMaxCols sample columns, so that its vectors
+  // (kept columns plus the pool bins they fall in) fit the ring.
+  static constexpr int kMaxCols =
+      2 * (kRing - 1) / 3 < kPk ? 2 * (kRing - 1) / 3 : kPk;
+  static_assert(kMaxCols >= 2, "ring too small");
+  // The lane's access q of a row of channels: for quads 128 q + 4 lane
+  // (each warp-wide access covers 512 contiguous bytes), for a pair
+  // 2 lane.
+  static __device__ __forceinline__ int at(int q, int lane) {
+    return 32 * kElem * q + kElem * lane;
+  }
+};
+
+template <int kVec>
 struct Vec {
   float v[kVec];
 };
 
-// The lane's quad q of a row of channels: 128 q + 4 lane.
-__device__ __forceinline__ int quad(int q, int lane) {
-  return 128 * q + 4 * lane;
-}
-
-__device__ __forceinline__ Vec load_lane(const float* row, int lane) {
-  Vec r;
+template <int kVec>
+__device__ __forceinline__ Vec<kVec> load_lane(const float* row, int lane) {
+  using L = Lane<kVec>;
+  Vec<kVec> r;
 #pragma unroll
-  for (int q = 0; q < kVec / 4; ++q) {
-    const float4 t = *reinterpret_cast<const float4*>(row + quad(q, lane));
-    r.v[4 * q] = t.x;
-    r.v[4 * q + 1] = t.y;
-    r.v[4 * q + 2] = t.z;
-    r.v[4 * q + 3] = t.w;
+  for (int q = 0; q < L::kQ; ++q) {
+    if constexpr (L::kElem == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(row + L::at(q, lane));
+      r.v[4 * q] = t.x;
+      r.v[4 * q + 1] = t.y;
+      r.v[4 * q + 2] = t.z;
+      r.v[4 * q + 3] = t.w;
+    } else {
+      const float2 t = *reinterpret_cast<const float2*>(row + L::at(q, lane));
+      r.v[2 * q] = t.x;
+      r.v[2 * q + 1] = t.y;
+    }
   }
   return r;
 }
 
 // acc[k] += w * d for a cell index k known only at run time: a switch, so
 // that the sums stay in registers.
+template <int kVec>
 __device__ __forceinline__ void add_cell(float (&acc)[kCells][kVec], int k,
-                                         float w, const Vec& d) {
+                                         float w, const Vec<kVec>& d) {
   static_assert(kCells == 8, "one case per cell");
 #define K2_CELL(q)                                                  \
   case q:                                                           \
@@ -194,6 +217,7 @@ __device__ __forceinline__ bool axis_meets(float p1, float bin, int origin,
   return lo <= first + n && hi >= first - 1;
 }
 
+template <int kVec>
 __global__ void __launch_bounds__(32)
     stereo_roi_align_bwd_kernel(Grads grads, const int* __restrict__ meta_l,
                                 const float* __restrict__ geom_l,
@@ -201,6 +225,9 @@ __global__ void __launch_bounds__(32)
                                 const float* __restrict__ geom_r,
                                 const float* __restrict__ g, int n_rois,
                                 int c) {
+  using L = Lane<kVec>;
+  constexpr int kChunk = L::kChunk, kQ = L::kQ, kElem = L::kElem;
+  constexpr int kMaxCols = L::kMaxCols;
   extern __shared__ float4 smem4[];  // ring [kRing][kChunk], hit meta, geom
   __shared__ int4 taps_q[kHitQ][2 * kPk];    // y-taps, then x-taps
   __shared__ int4 units[kUnitQ];
@@ -227,7 +254,7 @@ __global__ void __launch_bounds__(32)
   float4* hit_geom = reinterpret_cast<float4*>(hit_meta + n_rois);
   bool live[kQ];                             // the lane's quads below C
 #pragma unroll
-  for (int q = 0; q < kQ; ++q) live[q] = ch0 + quad(q, lane) < c;
+  for (int q = 0; q < kQ; ++q) live[q] = ch0 + L::at(q, lane) < c;
   float acc[kCells][kVec];
 #pragma unroll
   for (int k = 0; k < kCells; ++k) {
@@ -353,8 +380,8 @@ __global__ void __launch_bounds__(32)
 #pragma unroll
           for (int q = 0; q < kQ; ++q) {
             if (live[q]) {
-              __pipeline_memcpy_async(ring + pos * kChunk + quad(q, lane),
-                                      src + quad(q, lane), 16);
+              __pipeline_memcpy_async(ring + pos * kChunk + L::at(q, lane),
+                                      src + L::at(q, lane), 4 * kElem);
             }
           }
           pos = pos + 1 == kRing ? 0 : pos + 1;
@@ -367,8 +394,8 @@ __global__ void __launch_bounds__(32)
 #pragma unroll
         for (int q = 0; q < kQ; ++q) {
           if (live[q]) {
-            __pipeline_memcpy_async(ring + pos * kChunk + quad(q, lane),
-                                    src + quad(q, lane), 16);
+            __pipeline_memcpy_async(ring + pos * kChunk + L::at(q, lane),
+                                    src + L::at(q, lane), 4 * kElem);
           }
         }
         pos = pos + 1 == kRing ? 0 : pos + 1;
@@ -407,14 +434,14 @@ __global__ void __launch_bounds__(32)
       const int j = __ffs(cs) - 1;
       int pv_pos = start + n_d14 + __popc(bins & ((1u << (j / 2)) - 1u));
       pv_pos -= pv_pos >= kRing ? kRing : 0;
-      const Vec pv = load_lane(ring + pv_pos * kChunk, lane);
+      const Vec<kVec> pv = load_lane<kVec>(ring + pv_pos * kChunk, lane);
       // d14 + pool / 4 (left) or pool / 4 (right): the quarter is exact, so
       // one fused multiply-add rounds as the plain version's two steps.
-      Vec d;
+      Vec<kVec> d;
       if (side == 0) {
         int d_pos = start + k;
         d_pos -= d_pos >= kRing ? kRing : 0;
-        const Vec d14 = load_lane(ring + d_pos * kChunk, lane);
+        const Vec<kVec> d14 = load_lane<kVec>(ring + d_pos * kChunk, lane);
 #pragma unroll
         for (int v = 0; v < kVec; ++v) {
           d.v[v] = __fmaf_rn(pv.v[v], 0.25f, d14.v[v]);
@@ -458,12 +485,36 @@ __global__ void __launch_bounds__(32)
 #pragma unroll
     for (int q = 0; q < kQ; ++q) {
       if (!live[q]) continue;
-      __stcs(reinterpret_cast<float4*>(dst + (static_cast<size_t>(y) * w +
-                                              x) * c + quad(q, lane)),
-             make_float4(acc[k][4 * q], acc[k][4 * q + 1], acc[k][4 * q + 2],
-                         acc[k][4 * q + 3]));
+      float* cell = dst + (static_cast<size_t>(y) * w + x) * c + L::at(q, lane);
+      if constexpr (kElem == 4) {
+        __stcs(reinterpret_cast<float4*>(cell),
+               make_float4(acc[k][4 * q], acc[k][4 * q + 1],
+                           acc[k][4 * q + 2], acc[k][4 * q + 3]));
+      } else {
+        __stcs(reinterpret_cast<float2*>(cell),
+               make_float2(acc[k][2 * q], acc[k][2 * q + 1]));
+      }
     }
   }
+}
+
+template <int kVec>
+cudaError_t launch(const Grads& grads, const int* meta_l, const float* geom_l,
+                   const int* meta_r, const float* geom_r, const float* g,
+                   int batch, int n_rois, int c, int n_tiles,
+                   cudaStream_t stream) {
+  constexpr int kChunk = Lane<kVec>::kChunk;
+  const int smem = (kRing * kChunk + 8 * n_rois) * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        stereo_roi_align_bwd_kernel<kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 blocks(n_tiles * ((c + kChunk - 1) / kChunk), 1, 2 * batch);
+  stereo_roi_align_bwd_kernel<kVec><<<blocks, 32, smem, stream>>>(
+      grads, meta_l, geom_l, meta_r, geom_r, g, n_rois, c);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -472,8 +523,8 @@ __global__ void __launch_bounds__(32)
 // pointers to float32 NHWC level gradients [B, h, w, C], written in full;
 // level_hw / win_hw: host arrays (h0, w0, h1, w1, ...); meta_*: int32
 // [B, R, 4] (level, y0, x0, valid) and geom_*: float32 [B, R, 4] (y1, x1,
-// bin_h, bin_w) on the device; g: float32 [B, R, 294, C], C a multiple of
-// 4.  Returns a CUDA error code (0 on success).
+// bin_h, bin_w) on the device; g: float32 [B, R, 294, C], C even, 16-byte
+// aligned.  Returns a CUDA error code (0 on success).
 extern "C" int stereo_roi_align_bwd(float* const* grad_l,
                                     float* const* grad_r,
                                     const int* level_hw, const int* win_hw,
@@ -491,7 +542,7 @@ extern "C" int stereo_roi_align_bwd(float* const* grad_l,
     grads.win_w[l] = win_hw[2 * l + 1];
   }
   if (batch == 0 || c == 0) return static_cast<int>(cudaSuccess);
-  if (c % 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (c % 2) return static_cast<int>(cudaErrorInvalidValue);
   int n_tiles = 0;
   for (int l = kLevels - 1; l >= 0; --l) {
     grads.tiles_x[l] = (grads.w[l] + kTileW - 1) / kTileW;
@@ -499,16 +550,10 @@ extern "C" int stereo_roi_align_bwd(float* const* grad_l,
     n_tiles += grads.tiles_x[l] * ((grads.h[l] + kRowsW - 1) / kRowsW);
   }
   if (n_tiles == 0) return static_cast<int>(cudaSuccess);
-  const int smem = (kRing * kChunk + 8 * n_rois) * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stereo_roi_align_bwd_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 blocks(n_tiles * ((c + kChunk - 1) / kChunk), 1, 2 * batch);
-  stereo_roi_align_bwd_kernel<<<blocks, 32, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      grads, meta_l, geom_l, meta_r, geom_r, g, n_rois, c);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      c % 4 == 0 ? launch<8>(grads, meta_l, geom_l, meta_r, geom_r, g, batch,
+                             n_rois, c, n_tiles, s)
+                 : launch<2>(grads, meta_l, geom_l, meta_r, geom_r, g, batch,
+                             n_rois, c, n_tiles, s));
 }

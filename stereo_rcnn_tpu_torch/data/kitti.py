@@ -1,22 +1,23 @@
-"""KITTI objects and stereo target derivation (numpy only).
+"""KITTI object dataset: labels, calibration and stereo targets (numpy).
 
-A copy of the annotation half of ``stereo_rcnn_tpu.data.kitti``, which
-cannot be imported without JAX: the object record, the camera-frame
-corner geometry, the stereo annotation derived from one object (right box
-through P3, perspective and boundary keypoints) and the packing of a
-frame's annotations into the fixed-shape ``train.targets.GroundTruth``.
-Label-file parsing and the dataset reader are not ported yet.
+A copy of ``stereo_rcnn_tpu.data.kitti``, which cannot be imported without
+JAX: the object record and its label-file parser, the camera-frame corner
+geometry, the stereo annotation derived from one object (right box
+through P3, perspective and boundary keypoints), the packing of a frame's
+annotations into the fixed-shape ``train.targets.GroundTruth``, and the
+filesystem reader of a KITTI split (:class:`KittiDataset`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+import os
+from typing import List, Optional, Sequence
 
 import numpy as np
 
 from stereo_rcnn_tpu_torch.config import DataConfig
-from stereo_rcnn_tpu_torch.geometry.calib import StereoCalib
+from stereo_rcnn_tpu_torch.geometry.calib import StereoCalib, read_kitti_calib
 
 # Object-frame bottom-corner template — MUST match geometry.projection.
 _CX = np.array([0.5, 0.5, -0.5, -0.5])   # x_o in units of l
@@ -33,6 +34,24 @@ class KittiObject:
     dims: np.ndarray         # [3] (h, w, l)
     location: np.ndarray     # [3] bottom-center (x, y, z)
     ry: float
+
+
+def parse_label_file(path: str) -> List[KittiObject]:
+    objs = []
+    with open(path) as f:
+        for line in f:
+            p = line.strip().split(" ")
+            if len(p) < 15:
+                continue
+            objs.append(KittiObject(
+                type=p[0], truncation=float(p[1]), occlusion=int(float(p[2])),
+                alpha=float(p[3]),
+                box=np.array([float(x) for x in p[4:8]], np.float32),
+                dims=np.array([float(x) for x in p[8:11]], np.float32),
+                location=np.array([float(x) for x in p[11:14]], np.float32),
+                ry=float(p[14]),
+            ))
+    return objs
 
 
 def _bottom_corners_cam(loc: np.ndarray, dims: np.ndarray,
@@ -171,3 +190,40 @@ def pack_ground_truth(annos: Sequence[StereoAnnotation], max_gt: int,
         gt.ry[i] = a.ry
         gt.ignore[i] = a.ignore
     return gt
+
+
+class KittiDataset:
+    """Filesystem-backed KITTI object split (left and right images).
+
+    Layout (standard KITTI object): ``<root>/training/{image_2, image_3,
+    label_2, calib}/<id>.{png,txt}``.
+    """
+
+    def __init__(self, cfg: DataConfig, split_dir: str = "training",
+                 ids: Optional[Sequence[str]] = None):
+        self.cfg = cfg
+        self.root = os.path.join(cfg.kitti_root, split_dir)
+        if ids is None:
+            label_dir = os.path.join(self.root, "label_2")
+            ids = sorted(os.path.splitext(f)[0]
+                         for f in os.listdir(label_dir)) \
+                if os.path.isdir(label_dir) else []
+        self.ids = list(ids)
+
+    def __len__(self):
+        return len(self.ids)
+
+    def paths(self, idx: int):
+        i = self.ids[idx]
+        return {
+            "left": os.path.join(self.root, "image_2", f"{i}.png"),
+            "right": os.path.join(self.root, "image_3", f"{i}.png"),
+            "label": os.path.join(self.root, "label_2", f"{i}.txt"),
+            "calib": os.path.join(self.root, "calib", f"{i}.txt"),
+        }
+
+    def load_annotation(self, idx: int, im_w: float):
+        p = self.paths(idx)
+        calib = read_kitti_calib(p["calib"])
+        objs = parse_label_file(p["label"])
+        return annotations_for_frame(objs, calib, im_w, self.cfg), calib

@@ -1,15 +1,18 @@
 """Synthetic KITTI-like stereo scenes with ground truth (numpy only).
 
-Port of ``stereo_rcnn_tpu.data.synthetic``'s renderer and
-``synthetic_batch``, so the port can render its inputs on a host without
-JAX.  ``random_scene`` and ``render_pair`` are copies that consume the
-identical rng stream: the same seed gives byte-identical images and
-ground-truth arrays to ``stereo_rcnn_tpu.data.synthetic.synthetic_batch``
-(pinned by ``tests/test_torch_bridges.py``).
+Port of ``stereo_rcnn_tpu.data.synthetic``, so the port can render its
+inputs on a host without JAX.  ``random_scene`` and ``render_pair`` are
+copies that consume the identical rng stream: the same seed gives
+byte-identical images and ground-truth arrays to
+``stereo_rcnn_tpu.data.synthetic.synthetic_batch`` in every domain of
+:data:`EVAL_DOMAINS`, and :func:`write_kitti_frame` writes byte-identical
+KITTI trees (pinned by ``tests/test_torch_bridges.py`` and
+``tests/test_torch_tools_data.py``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -305,12 +308,33 @@ def render_pair(objs: List[KittiObject], calib: StereoCalib, im_h: int,
     return left, right
 
 
+#: Held-out evaluation domains (``tools.eval_synth --domain``): appearance
+#: perturbations the training renderer never produces, applied to the same
+#: scene geometry and textures (their draws come from a separate per-frame
+#: rng, so the scene stream is untouched):
+#:   none     — the training distribution (cfg.data.synthetic_appearance)
+#:   untinted — "plain" appearance: yaw observable only from the disparity
+#:              profile
+#:   shaded   — Lambertian face shading (achromatic orientation cue)
+#:   tinted   — per-face colour-code tints (whatever cfg's appearance)
+#:   illum    — global per-frame brightness/contrast shift (the same on
+#:              both views, so photometric matching holds)
+#:   noise    — independent per-view sensor noise (sigma 8/255)
+EVAL_DOMAINS = ("none", "untinted", "shaded", "tinted", "illum", "noise")
+
+#: Domains that force an appearance; the others render cfg's appearance.
+_DOMAIN_APPEARANCE = {"untinted": "plain", "shaded": "shaded",
+                      "tinted": "tints"}
+
+
 def synthetic_batch(cfg: Config, batch: int, seed: int = 0,
-                    n_objects: int = 4):
+                    n_objects: int = 4, domain: str = "none"):
     """``(left, right, gt, calib)``: mean-subtracted BGR image pairs
     [B, H, W, 3] float32, the packed :class:`GroundTruth` with numpy leaves
-    [B, G, ...], and the working-resolution calibration (the JAX package's
-    ``synthetic_batch`` with ``domain="none"``)."""
+    [B, G, ...], and the working-resolution calibration, rendered in one
+    of :data:`EVAL_DOMAINS` (the JAX package's ``synthetic_batch``)."""
+    if domain not in EVAL_DOMAINS:
+        raise ValueError(f"unknown domain {domain!r}; known: {EVAL_DOMAINS}")
     calib = default_kitti_calib()
     h, w = cfg.data.image_h, cfg.data.image_w
     # Scale nominal KITTI calib (1242x375) to the working resolution.
@@ -322,17 +346,59 @@ def synthetic_batch(cfg: Config, batch: int, seed: int = 0,
     if unknown:
         raise ValueError(f"no synthetic renderer spec for classes "
                          f"{unknown}; known: {sorted(_CLASS_SPECS)}")
+    appearance = _DOMAIN_APPEARANCE.get(domain,
+                                        cfg.data.synthetic_appearance)
     imgs_l, imgs_r, gts = [], [], []
-    for _ in range(batch):
+    for b in range(batch):
         objs = random_scene(rng, n_objects, calib_s, h, w, class_names)
-        il, ir = render_pair(objs, calib_s, h, w, rng,
-                             appearance=cfg.data.synthetic_appearance)
+        il, ir = render_pair(objs, calib_s, h, w, rng, appearance=appearance)
+        if domain in ("illum", "noise"):
+            # A separate rng: every domain renders the identical scenes.
+            prng = np.random.RandomState((seed * 1000003 + b) % (1 << 31))
+            if domain == "illum":
+                gain = prng.uniform(0.55, 1.35)
+                off = prng.uniform(-25.0, 25.0)
+                il = np.clip(il * gain + off, 0.0, 255.0)
+                ir = np.clip(ir * gain + off, 0.0, 255.0)
+            else:
+                il = np.clip(il + prng.randn(*il.shape) * 8.0, 0.0, 255.0)
+                ir = np.clip(ir + prng.randn(*ir.shape) * 8.0, 0.0, 255.0)
+            il = il.astype(np.float32)
+            ir = ir.astype(np.float32)
         annos = annotations_for_frame(objs, calib_s, float(w), cfg.data)
         gts.append(pack_ground_truth(annos, cfg.train.max_gt_boxes))
         imgs_l.append(il - means)
         imgs_r.append(ir - means)
     gt = GroundTruth(*[np.stack(field) for field in zip(*gts)])
     return np.stack(imgs_l), np.stack(imgs_r), gt, calib_s
+
+
+def write_kitti_frame(root: str, frame_id: str, objs: List[KittiObject],
+                      calib: StereoCalib, left: np.ndarray,
+                      right: np.ndarray) -> None:
+    """Write one KITTI-format frame under ``<root>/training/``: its label
+    and calibration files, and the images as ``.npy`` (no image codec)."""
+    for sub in ("label_2", "calib", "image_2", "image_3"):
+        os.makedirs(os.path.join(root, "training", sub), exist_ok=True)
+    with open(os.path.join(root, "training", "label_2",
+                           f"{frame_id}.txt"), "w") as f:
+        for o in objs:
+            f.write(
+                f"{o.type} {o.truncation:.2f} {o.occlusion} {o.alpha:.6f} "
+                f"{o.box[0]:.2f} {o.box[1]:.2f} {o.box[2]:.2f} {o.box[3]:.2f} "
+                f"{o.dims[0]:.2f} {o.dims[1]:.2f} {o.dims[2]:.2f} "
+                f"{o.location[0]:.2f} {o.location[1]:.2f} "
+                f"{o.location[2]:.2f} {o.ry:.6f}\n")
+    p2 = np.asarray(calib.p2).reshape(-1)
+    p3 = np.asarray(calib.p3).reshape(-1)
+    with open(os.path.join(root, "training", "calib",
+                           f"{frame_id}.txt"), "w") as f:
+        f.write("P2: " + " ".join(f"{x:.12e}" for x in p2) + "\n")
+        f.write("P3: " + " ".join(f"{x:.12e}" for x in p3) + "\n")
+    np.save(os.path.join(root, "training", "image_2", f"{frame_id}.npy"),
+            left)
+    np.save(os.path.join(root, "training", "image_3", f"{frame_id}.npy"),
+            right)
 
 
 def synthetic_images(cfg: Config, batch: int, seed: int = 0,

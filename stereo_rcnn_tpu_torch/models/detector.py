@@ -52,20 +52,24 @@ class StereoRCNN(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         rc = cfg.rcnn
-        if cfg.backbone.fpn_upsample != "bilinear":
-            raise NotImplementedError(
-                f"backbone.fpn_upsample={cfg.backbone.fpn_upsample!r}: the "
-                "port's FPN upsamples bilinearly only")
         if (rc.roi_align_impl == "pallas" and
                 rc.kpt_pool_size != 2 * rc.pooling_size):
             raise ValueError("the fused RoIAlign needs kpt_pool_size == "
                              "2 * pooling_size")
+        if rc.roi_align_impl == "pallas" and cfg.backbone.fpn_dim % 2:
+            # The card's kernels (K1, K2) take any even channel count; the
+            # Pallas kernels take any.  Refused here, on every device, so
+            # that no run gets as far as a first launch.
+            raise ValueError(
+                f"backbone.fpn_dim={cfg.backbone.fpn_dim}: the fused stereo "
+                "RoIAlign (rcnn.roi_align_impl='pallas') needs an even "
+                "fpn_dim")
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         d = cfg.backbone.fpn_dim
         bb = cfg.backbone
         self.backbone_net = ResNetFPN(bb.depth, d, bb.norm, bb.frozen_stages,
-                                      bb.remat)
+                                      bb.remat, bb.fpn_upsample)
         self.RCNN_rpn = StereoRPNHead(d, cfg.anchors.num_anchors_per_cell,
                                       cfg.rpn.conv_dim)
         self.rcnn_head = RCNNHead(d, rc.pooling_size, rc.num_classes,

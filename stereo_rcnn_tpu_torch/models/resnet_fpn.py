@@ -138,8 +138,13 @@ class ResNetFPN(nn.Module):
 
     def __init__(self, depth: int = 101, fpn_dim: int = 256,
                  norm: str = "frozen", frozen_stages: int = 1,
-                 remat: bool = False):
+                 remat: bool = False, upsample: str = "bilinear"):
         super().__init__()
+        if upsample not in ("bilinear", "nearest"):
+            raise ValueError(f"backbone.fpn_upsample: unknown mode "
+                             f"{upsample!r} (expected 'bilinear' or "
+                             "'nearest')")
+        self.upsample = upsample
         self.norm = norm
         self.frozen_stages = frozen_stages
         self.remat = remat
@@ -189,9 +194,10 @@ class ResNetFPN(nn.Module):
             stages.append(x)
         c2, c3, c4, c5 = stages
         p5 = self.RCNN_toplayer(c5)
-        p4 = _upsample_add(p5, self.RCNN_latlayer1(c4))
-        p3 = _upsample_add(p4, self.RCNN_latlayer2(c3))
-        p2 = _upsample_add(p3, self.RCNN_latlayer3(c2))
+        up = self.upsample
+        p4 = _upsample_add(p5, self.RCNN_latlayer1(c4), up)
+        p3 = _upsample_add(p4, self.RCNN_latlayer2(c3), up)
+        p2 = _upsample_add(p3, self.RCNN_latlayer3(c2), up)
         p4 = self.RCNN_smooth1(p4)
         p3 = self.RCNN_smooth2(p3)
         p2 = self.RCNN_smooth3(p2)
@@ -200,9 +206,17 @@ class ResNetFPN(nn.Module):
                      .permute(0, 2, 3, 1) for p in (p2, p3, p4, p5, p6))
 
 
-def _upsample_add(top: torch.Tensor, lateral: torch.Tensor) -> torch.Tensor:
-    """Bilinear (half-pixel centres) upsample of ``top`` to the lateral's
-    size, plus the lateral (resnet.py ``_upsample_add``)."""
-    up = F.interpolate(top, size=lateral.shape[2:], mode="bilinear",
-                       align_corners=False)
+def _upsample_add(top: torch.Tensor, lateral: torch.Tensor,
+                  mode: str) -> torch.Tensor:
+    """Upsample ``top`` to the lateral's size and add the lateral.
+    "bilinear": half-pixel centres (resnet.py ``_upsample_add``);
+    "nearest": every cell repeated 2x on both axes, cropped to the
+    lateral's size (the JAX package's cheaper option)."""
+    h, w = lateral.shape[2:]
+    if mode == "bilinear":
+        up = F.interpolate(top, size=(h, w), mode="bilinear",
+                           align_corners=False)
+    else:
+        up = top.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        up = up[:, :, :h, :w]
     return up + lateral

@@ -581,7 +581,8 @@ class StereoRoIAlignBwdKernel(CudaKernel):
 
     def __call__(self, g_packed, rois_l, rois_r, level_shapes, strides):
         """float32 ``(d_feats_l, d_feats_r)`` lists of ``[B, H_l, W_l, C]``
-        for the packed cotangent ``g_packed`` [B, R, 294, C] float32.  The
+        for the packed cotangent ``g_packed`` [B, R, 294, C] float32, C
+        even (8-channel lanes where C % 4 == 0, else 2-channel lanes).  The
         kernel writes every gradient cell once, so they are allocated
         uninitialised."""
         fn = self.load()
@@ -597,11 +598,13 @@ class StereoRoIAlignBwdKernel(CudaKernel):
             raise ValueError(f"cotangent must be contiguous float32 "
                              f"[{b}, {r}, {ROWS}, C], got {g_packed.dtype} "
                              f"{tuple(g_packed.shape)}")
-        if c % 4:
-            raise ValueError(f"channel count must be a multiple of 4, got {c}")
+        if c % 2:
+            raise ValueError(f"channel count must be even, got {c}")
         _check_rois(rois_l, rois_r, b, r)
         if rois_l.device != dev:
             raise ValueError("rois and cotangent must share a device")
+        if g_packed.data_ptr() % 16:
+            g_packed = g_packed.clone()    # the kernel's 16-byte loads
         meta, geom = roi_window_meta(level_shapes,
                                      torch.stack([rois_l, rois_r]), strides)
         d_l = [torch.empty((b, h, w, c), dtype=torch.float32, device=dev)

@@ -4,4 +4,5 @@ from stereo_rcnn_tpu_torch.train.step import (Batch, TrainState,
                                               compute_losses,
                                               init_train_state,
                                               make_optimizer,
-                                              make_train_step, param_label)
+                                              make_train_step, param_label,
+                                              step_generator)

@@ -235,6 +235,16 @@ def _place(state: TrainState, batch: Batch, device: torch.device) -> Batch:
                  ground_truth_to_torch(batch.gt, device))
 
 
+def step_generator(seed: int, step: int,
+                   device: torch.device | str) -> torch.Generator:
+    """The target-sampling generator of training step ``step`` on
+    ``device``: seeded from ``(seed, step)`` alone, so a run resumed from a
+    checkpoint draws what an uninterrupted run draws."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((seed * 1_000_003 + step) % (1 << 63))
+    return gen
+
+
 def make_train_step(cfg: Config, steps_per_epoch: int = 1000,
                     device: torch.device | str | None = None):
     """``step_fn(state, batch, generator=None, uniforms=None) -> metrics``:

@@ -188,10 +188,47 @@ def _frozen_pallas_cfg(section, field, value):
     ("backbone", "fpn_upsample", "nearest"),
 ])
 def test_unported_options_raise(section, field, value):
-    """Options the port does not implement raise instead of running
-    something else."""
-    with pytest.raises(NotImplementedError, match=field):
-        StereoRCNN(_frozen_pallas_cfg(section, field, value))
+    """The options the port once refused now build and run as the JAX
+    package runs them.  ``fpn_upsample="nearest"``: the port's backbone
+    against the flax one (repeat 2x, crop to the lateral) on the same
+    weights through ``convert.from_jax``, float32, every level within
+    1e-5 of its largest magnitude (the convolutions sum in another
+    order).  Odd image sides make the crop cut a repeated row and
+    column."""
+    from stereo_rcnn_tpu.models.resnet_fpn import ResNetFPN
+    cfg = _frozen_pallas_cfg(section, field, value)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32", backbone=(
+        dataclasses.replace(cfg.backbone, depth=10, fpn_dim=32)))
+    rng = np.random.RandomState(3)
+    img = (rng.randn(2, 80, 112, 3) * 50).astype(np.float32)
+    mod = ResNetFPN(depth=10, fpn_dim=32, dtype=jax.numpy.float32,
+                    norm="frozen", upsample=value)
+    p = jax.tree.map(np.asarray,
+                     mod.init(jax.random.PRNGKey(0), img)["params"])
+    theirs = jax.jit(mod.apply)({"params": p}, img)
+    sd = state_dict_from_jax({"params": {"backbone_net": p}}, cfg)
+    model = StereoRCNN(cfg)
+    assert model.backbone_net.upsample == value
+    model.backbone_net.load_state_dict(
+        {k[len("backbone_net."):]: v for k, v in sd.items()}, strict=True)
+    with torch.no_grad():
+        ours = model.backbone(torch.from_numpy(img))
+    for o, t in zip(ours, theirs):
+        t = np.asarray(t)
+        assert o.shape == t.shape
+        np.testing.assert_allclose(o.numpy(), t, rtol=0,
+                                   atol=1e-5 * np.abs(t).max())
+
+
+def test_odd_fpn_dim_refused_with_the_fused_roi_align():
+    """An odd ``fpn_dim`` with the fused RoIAlign is refused when the
+    model is built, naming ``fpn_dim`` (the card's kernels take even
+    channel counts); the gather takes it."""
+    cfg = _frozen_pallas_cfg("backbone", "fpn_dim", 33)
+    with pytest.raises(ValueError, match="fpn_dim"):
+        StereoRCNN(cfg)
+    StereoRCNN(dataclasses.replace(cfg, rcnn=dataclasses.replace(
+        cfg.rcnn, roi_align_impl="xla")))
 
 
 @pytest.mark.parametrize("field, value, expect", [

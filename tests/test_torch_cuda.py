@@ -5,6 +5,8 @@ backward K2 (deterministic: two launches give the same bits), the windowed
 RoIAlign K3 and the atlas variant K4.  K1 and K3 are also checked at C = 36,
 which is not a multiple of 8 and so takes their 2-channel lanes (C = 256
 takes the 8-channel ones), and the two lane widths must give the same bits.
+K2 takes 8-channel lanes where C % 4 == 0 and 2-channel lanes at any other
+even C: it is checked at C = 34 too.
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  The file imports no JAX, so it runs on
 a machine without it:
@@ -63,20 +65,22 @@ def test_k1_cuda_kernel_matches_plain(dtype, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 34])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k2_cuda_kernel_matches_plain_backward(dtype):
+def test_k2_cuda_kernel_matches_plain_backward(dtype, c):
     """K2 against the plain backward on the card, and the autograd
-    Function's backward launching it.  1e-5 of each level's largest
-    |gradient|: both sum the same float32 terms, K2 per gradient cell in
-    roi, sample and tap order with each multiply fused into its add, the
-    plain version tap by tap."""
+    Function's backward launching it, with 8-channel lanes (C = 256) and
+    2-channel lanes (C = 34).  1e-5 of each level's largest |gradient|:
+    both sum the same float32 terms, K2 per gradient cell in roi, sample
+    and tap order with each multiply fused into its add, the plain version
+    tap by tap."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    fl, fr, rl, rr = _k1_inputs(256)
+    fl, fr, rl, rr = _k1_inputs(c)
     dev = torch.device("cuda")
     shapes = [f.shape[1:3] for f in fl]
     rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
-    g = torch.randn(rl.shape[0], rl.shape[1], t_sra.ROWS, 256, device=dev,
+    g = torch.randn(rl.shape[0], rl.shape[1], t_sra.ROWS, c, device=dev,
                     generator=torch.Generator(dev).manual_seed(0))
     before = t_sra.stereo_roi_align_bwd_kernel.launches
     d_l, d_r = t_sra.stereo_roi_align_bwd_kernel(g, rl_t, rr_t, shapes,
@@ -174,11 +178,12 @@ def test_k1_two_matmul_modes_match_plain(hat, dtype, c):
 
 
 @pytest.mark.cuda
-def test_k2_is_deterministic_and_owns_each_cell():
+@pytest.mark.parametrize("c", [256, 34])
+def test_k2_is_deterministic_and_owns_each_cell(c):
     """Two K2 launches give the same bits, also when all 128 rois of an
     image are one box (every sample of every roi adds into the same
     cells), and match the plain backward within 1e-5 of each level's
-    largest |gradient|."""
+    largest |gradient|; with 8- and 2-channel lanes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     _, _, rl, rr = _k1_inputs(256)
@@ -188,7 +193,7 @@ def test_k2_is_deterministic_and_owns_each_cell():
         np.float32([[[300, 100, 420, 190]]]), (2, 128, 1))])
     rr = rl - np.float32([17, 0, 14, 0])
     rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
-    g = torch.randn(4, 128, t_sra.ROWS, 256, device=dev,
+    g = torch.randn(4, 128, t_sra.ROWS, c, device=dev,
                     generator=torch.Generator(dev).manual_seed(1))
     k2 = t_sra.stereo_roi_align_bwd_kernel
     first = k2(g, rl_t, rr_t, shapes, STRIDES)
@@ -267,6 +272,26 @@ def test_lane_width_keeps_the_bits(dtype):
         assert torch.equal(
             t_win.multilevel_roi_align_window(tl, rl_t, STRIDES, p, s),
             t_win.multilevel_roi_align_window(sl, rl_t, STRIDES, p, s))
+
+
+@pytest.mark.cuda
+def test_k2_lane_width_keeps_the_bits():
+    """K2 at C = 34 (2-channel lanes) gives the bits of the first 34
+    channels of K2 at C = 36 (8-channel lanes) on the same cotangent: a
+    channel's terms are summed in the same order at either width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, _, rl, rr = _k1_inputs(256)
+    dev = torch.device("cuda")
+    shapes = [(384 // s, 1280 // s) for s in STRIDES]
+    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
+    g = torch.randn(2, rl.shape[1], t_sra.ROWS, 36, device=dev,
+                    generator=torch.Generator(dev).manual_seed(2))
+    k2 = t_sra.stereo_roi_align_bwd_kernel
+    wide = k2(g, rl_t, rr_t, shapes, STRIDES)
+    narrow = k2(g[..., :34].contiguous(), rl_t, rr_t, shapes, STRIDES)
+    for a, b_ in zip(wide[0] + wide[1], narrow[0] + narrow[1]):
+        assert torch.equal(a[..., :34], b_)
 
 
 @pytest.mark.cuda

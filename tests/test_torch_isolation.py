@@ -7,7 +7,11 @@ tiny frozen-BN config and runs ``make_full_pipeline`` on the CPU with the
 fused RoIAlign and with the atlas gather (``roi_align_impl="xla"``), then
 one training step of the tiny GroupNorm config (``train/``,
 ``data/kitti.py`` and the RoIAlign autograd Function), as the card's
-machine (which has no JAX) must.
+machine (which has no JAX) must.  Then it imports every module of the
+training and evaluation tools (``tools.train``, ``supervise_train``,
+``eval_synth``, ``test_net``, ``smoke_e2e`` and what they use) and runs
+one ``tools.train`` step of that config, given as JSON, on a ``.npy``
+KITTI tree.
 """
 
 import os
@@ -79,16 +83,49 @@ SCRIPT = textwrap.dedent("""
         state, Batch(il, ir, gt), torch.Generator().manual_seed(1))
     assert state.step == 1
     assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
+
+    # The training and evaluation tools and the modules under them, and
+    # one tools.train step from a .npy KITTI tree with a JSON config.
+    import importlib
+    import os
+    for name in ("config", "data.kitti", "data.pipeline", "data.synthetic",
+                 "evalkit", "evalkit.kitti_eval", "evalkit.rotate_iou",
+                 "train.checkpoint", "utils.host_preproc", "utils.metrics",
+                 "utils.profiling", "tools.train", "tools.supervise_train",
+                 "tools.eval_synth", "tools.test_net", "tools.smoke_e2e"):
+        importlib.import_module("stereo_rcnn_tpu_torch." + name)
+    from stereo_rcnn_tpu_torch.config import save_config
+    from stereo_rcnn_tpu_torch.data.synthetic import (random_scene,
+                                                      render_pair,
+                                                      write_kitti_frame)
+    from stereo_rcnn_tpu_torch.geometry.calib import default_kitti_calib
+    from stereo_rcnn_tpu_torch.tools import train as train_cli
+    work = sys.argv[1]
+    kcalib = default_kitti_calib()
+    rng = np.random.RandomState(0)
+    for i in range(2):
+        objs = random_scene(rng, 2, kcalib, 375, 1242)
+        left, right = render_pair(objs, kcalib, 375, 1242, rng)
+        write_kitti_frame(os.path.join(work, "kitti"), f"{i:06d}", objs,
+                          kcalib, left, right)
+    save_config(cfg, os.path.join(work, "tiny.json"))
+    ck = os.path.join(work, "ckpt")
+    final = train_cli.run(train_cli.parse_args([
+        "--config", os.path.join(work, "tiny.json"), "--kitti-root",
+        os.path.join(work, "kitti"), "--image-ext", ".npy", "--epochs", "1",
+        "--batch-per-device", "2", "--ckpt-dir", ck, "--platform", "cpu"]))
+    assert final.step == 1
+    assert os.path.exists(os.path.join(ck, "config.json"))
     assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("OK", int(valid.sum()))
 """)
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
-                          env=env, capture_output=True, text=True,
-                          timeout=600)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)],
+                          cwd=str(tmp_path), env=env, capture_output=True,
+                          text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1].startswith("OK")
