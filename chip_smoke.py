@@ -1,5 +1,5 @@
-"""Build the port's CUDA kernels and drive its inference, training and
-RoIAlign-benchmark paths once on one GPU.
+"""Build the port's CUDA kernels and drive its inference, training,
+RoIAlign-benchmark, tools and serving paths once on one GPU.
 
     python3 chip_smoke.py
 
@@ -69,7 +69,28 @@ the CUDA toolkit (``nvcc``).  Phases, each raising on failure:
     one, tensor for tensor; one more step, K1 and K2 once); ``tools.test_net``
     on the tree with the params export and ``tools.eval_synth --batches 1
     --batch 4``, each printing its AP lines and launching K1; no plain
-    RoIAlign version runs.  Each CLI's wall seconds are printed.
+    RoIAlign version runs.  Each CLI's wall seconds are printed;
+12. serving, on phase 11's checkpoint and tree: ``convert.norm_calibrate``
+    from one image in float32, the calibrated backbone held to the
+    GroupNorm one within 5e-5 of each level's largest value, written as a
+    params export with its ``config.json`` (norm "frozen");
+    ``tools.calibrate_norm`` (batch 8, one calibration and one held-out
+    batch), which a 3-step model may fail: rc 0 with all three files, or
+    rc 1 with "validation FAILED" and no ``VALID``; ``tools.export_model``
+    of ``bench.py``'s program (``Config()``, ``"pallas"``, ``kron_bf16``)
+    at batch 8 with the calibrated weights (the trace launches nothing),
+    and ``--verify``; ``tools.serve`` on the tree, grown to 64 rendered
+    frames, with the weights loaded over the artifact's (64 result files,
+    K1 ``kron_bf16`` launched once a batch; the first batch's seconds and
+    the pairs/s of the batches after it are printed apart); the loaded
+    artifact against the eager pipeline on one batch of the tree (equal
+    ``valid``, boxes and scores within 1e-3, finite positions; ms per call
+    in 6 alternating turns of 3 calls);
+    ``tools.diag_3d`` on the checkpoint (its match line, K1 launched) and
+    ``tools.demo --synthetic`` (``Config()``'s gather: no K1; its PNG must
+    decode to 1280x1536).  No plain RoIAlign version and no K2 runs.  The
+    trace, save and load seconds, the artifact's MB, ``serve``'s first
+    batch and steady pairs/s and each tool's wall seconds are printed.
 
 Times of the kernels' previous versions (the two-channel K1 and K3, the
 atomic K2, the two-channel K4 and the wrappers that copied their tables
@@ -136,6 +157,20 @@ TOL_KRON = 1e-5
 # a tenth of the bound, so that a fault on one level's few rois shows).
 TOL_2MM = 2.0 ** -6
 TOL_2MM_ROWS = 0.001
+# The one-image norm calibration, float32: the calibrated backbone against
+# the GroupNorm one on that image, relative to each level's largest value
+# (tests/test_norm_calibrate.py's bound: the two differ in how the moments
+# are summed).
+TOL_CALIB = 5e-5
+# The served artifact against the eager pipeline on the same batch: boxes
+# (px) and scores; the same ops, but cuDNN may pick other algorithms.
+TOL_SERVE = 1e-3
+# The serving phase serves this many rendered frames (batches of 8; the
+# first batch, which pays one-off set-up, is reported apart) and times the
+# artifact against the eager pipeline in this many alternating turns of
+# this many calls.
+SERVE_FRAMES = 64
+RATIO_TURNS, RATIO_CALLS = 6, 3
 # K2 vs plain backward: the same float32 terms, K2 fusing each term's
 # multiply into its add and summing per cell in roi, sample and tap order
 # (index_add_ in the plain version), relative to each level's largest
@@ -1117,14 +1152,256 @@ def tools(sra, dev, card):
     if got["K1"] < 1 or "AP_3d@0.5 (R40)" not in out or \
             "restored step 3" not in out:
         raise RuntimeError(f"tools: eval_synth launches {got}")
-    shutil.rmtree(work)
+    shutil.rmtree(os.path.join(work, "results"))
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
     print(f"tools phase: {wall:.1f} s; " + ", ".join(
         f"{k} {v:.1f} s" for k, v in walls.items()) +
         f"; launches on the tools path {launches}; plain versions 0 calls; "
         f"native host preprocessing: yes  [{card}]", flush=True)
-    return launches
+    # The serving phase takes over the tree and the checkpoint.
+    return launches, work
+
+
+def _png_size(path):
+    """``(width, height)`` of an 8-bit RGB PNG, raising unless its image
+    data decodes to that many rows of that many pixels."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise RuntimeError(f"{path} is not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if kind == b"IHDR":
+            size = struct.unpack(">II", data[pos + 8:pos + 16])
+        elif kind == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h = size
+    if len(zlib.decompress(idat)) != h * (1 + 3 * w):
+        raise RuntimeError(f"{path}: image data is not {w}x{h} RGB")
+    return w, h
+
+
+def serving(sra, dev, card, work):
+    """Phase 12: norm calibration, export, serving, diagnosis and the demo
+    at full width, on the tools phase's checkpoint (GroupNorm-32, 3 steps)
+    and 8-frame tree, which it deletes at the end."""
+    import os
+    import shutil
+
+    from stereo_rcnn_tpu_torch.config import Config, load_config, save_config
+    from stereo_rcnn_tpu_torch.convert.norm_calibrate import calibrate
+    from stereo_rcnn_tpu_torch.data.synthetic import (random_scene,
+                                                      render_pair,
+                                                      write_kitti_frame)
+    from stereo_rcnn_tpu_torch.geometry.calib import default_kitti_calib
+    from stereo_rcnn_tpu_torch.inference import make_full_pipeline
+    from stereo_rcnn_tpu_torch.models.detector import build_model
+    from stereo_rcnn_tpu_torch.tools import (calibrate_norm, demo, diag_3d,
+                                             export_model, serve)
+    from stereo_rcnn_tpu_torch.train.checkpoint import (PARAMS_FILE,
+                                                        export_params,
+                                                        restore_params)
+
+    t_phase = time.perf_counter()
+    k1, k2 = sra.stereo_roi_align_kernel, sra.stereo_roi_align_bwd_kernel
+    tree, ck = os.path.join(work, "kitti", "training"), os.path.join(work,
+                                                                     "ckpt")
+    walls, launches = {}, {}
+
+    def counted(name, fn, *args):
+        k1.reset_counts()
+        k2.reset_counts()
+        with _PlainCalls(sra) as plain:
+            res, out, walls[name] = _cli(name, fn, *args)
+        if plain or k2.launches:
+            raise RuntimeError(f"serving: {name} ran plain versions {plain},"
+                               f" K2 {k2.launches} times")
+        launches[name] = {h: n for h, n in k1.launches_by_hat.items() if n}
+        return res, out
+
+    dirs = [os.path.join(tree, d) for d in ("image_2", "image_3", "calib")]
+    serve_args = ["--left-dir", dirs[0], "--right-dir", dirs[1],
+                  "--calib-dir", dirs[2], "--image-ext", ".npy"]
+    # 1. Calibrate from one image, in float32 (TF32 is off), and hold the
+    # calibrated backbone to the GroupNorm one on it.
+    t0 = time.perf_counter()
+    cfg_gn = load_config(os.path.join(ck, "config.json"),
+                         overrides={"backbone": {"remat": False}})
+    cfg32 = dataclasses.replace(cfg_gn, compute_dtype="float32")
+    model_gn = restore_params(os.path.join(ck, "params_export"),
+                              build_model(cfg32).to(dev).eval())
+    img = serve.read_batch(*dirs, ".npy", ["000000"], 1, cfg32.data.image_h,
+                           cfg32.data.image_w, cfg32.backbone.pixel_means_bgr,
+                           dev)[0]
+    cfg_aff, model_aff = calibrate(cfg32, model_gn, [(img, img)])
+    with torch.no_grad():
+        levels = zip(model_gn.backbone(img), model_aff.backbone(img))
+        rel = [((a - b).abs().max() / a.abs().max()).item()
+               for a, b in levels]
+    if not max(rel) <= TOL_CALIB:
+        raise RuntimeError(f"serving: one-image calibration off by {rel} of "
+                           f"each level's largest value (tol {TOL_CALIB})")
+    calibrated = os.path.join(work, "calibrated_1img")
+    export_params(os.path.join(calibrated, "params_export"), model_aff)
+    save_config(dataclasses.replace(cfg_aff,
+                                    compute_dtype=cfg_gn.compute_dtype),
+                os.path.join(calibrated, "config.json"))
+    del model_gn, model_aff, img
+    torch.cuda.empty_cache()
+    walls["calibrate 1 image"] = time.perf_counter() - t0
+    print(f"one-image calibration (float32, ResNet-{cfg32.backbone.depth}): "
+          f"P2..P6 within {', '.join(f'{r:.2e}' for r in rel)} of each "
+          f"level's largest value (tol {TOL_CALIB})", flush=True)
+
+    # 2. The calibration tool: a 3-step model may fail its own gate.
+    rc, out = counted("calibrate_norm", calibrate_norm.main, [
+        "--ckpt-dir", ck, "--calib-batches", "1", "--eval-batches", "1",
+        "--batch", "8"])
+    cal = os.path.join(ck, "calibrated")
+    wrote = {f: os.path.exists(os.path.join(cal, f)) for f in
+             (os.path.join("params_export", PARAMS_FILE), "config.json",
+              "VALID")}
+    if rc == 0 and all(wrote.values()):
+        outcome = "passed its gate and wrote params_export, config.json, VALID"
+    elif rc == 1 and "validation FAILED" in out and not wrote["VALID"]:
+        outcome = "failed its gate (rc 1) and wrote no VALID marker"
+    else:
+        raise RuntimeError(f"serving: calibrate_norm rc {rc}, wrote {wrote}")
+    if not launches["calibrate_norm"].get("f32"):
+        raise RuntimeError("serving: calibrate_norm launched no K1")
+    print(f"calibrate_norm: {outcome}", flush=True)
+
+    # 3. Export bench.py's program (Config(), "pallas", kron_bf16) at batch
+    # 8 with the one-image calibration's weights, then verify it.
+    base = Config()
+    cfg = dataclasses.replace(base, rcnn=dataclasses.replace(
+        base.rcnn, roi_align_impl="pallas", roi_align_hat="kron_bf16"))
+    cfg_json = os.path.join(work, "res101_pallas.json")
+    save_config(cfg, cfg_json)
+    artifact = os.path.join(work, "res101_pallas.pt2")
+    _, out = counted("export_model", export_model.main, [
+        "--config", cfg_json, "--batch", "8", "--ckpt-dir", calibrated,
+        "--out", artifact])
+    m = re.search(r"exported ([\d.]+) MB .* traced in ([\d.]+)s, saved in "
+                  r"([\d.]+)s", out)
+    if m is None or launches["export_model"]:
+        raise RuntimeError(f"serving: export_model launched "
+                           f"{launches['export_model']} (the trace launches "
+                           "nothing)")
+    mb, trace_s, save_s = (float(x) for x in m.groups())
+    _, out = counted("export verify", export_model.main, [
+        "--verify", artifact, "--config", cfg_json])
+    if ("verify OK: ran batch 8" not in out or
+            launches["export verify"] != {"kron_bf16": 1}):
+        raise RuntimeError(f"serving: verify launched "
+                           f"{launches['export verify']}")
+
+    # 4. Serve the tree, grown to SERVE_FRAMES frames from the same
+    # renderer, with the weights loaded over the artifact's.
+    t0 = time.perf_counter()
+    calib, rng = default_kitti_calib(), np.random.RandomState(12)
+    for i in range(len(os.listdir(dirs[0])), SERVE_FRAMES):
+        objs = random_scene(rng, 4, calib, 375, 1242)
+        left, right = render_pair(objs, calib, 375, 1242, rng)
+        write_kitti_frame(os.path.dirname(tree), f"{i:06d}", objs, calib,
+                          left, right)
+    walls["write serve tree"] = time.perf_counter() - t0
+    results = os.path.join(work, "served")
+    pipe, out = counted("serve", serve.run, serve.parse_args([
+        "--artifact", artifact, "--ckpt-dir", calibrated, "--out",
+        results] + serve_args))
+    m = re.search(r"loaded in ([\d.]+)s", out)
+    first = re.search(r"first batch ([\d.]+)s", out)
+    steady = re.search(r"after the first batch: (\d+) frames in [\d.]+s "
+                       r"\(([\d.]+) pairs/s\); per batch (median .*)", out)
+    n_batches = SERVE_FRAMES // 8
+    if (m is None or first is None or steady is None or
+            f"served {SERVE_FRAMES} frames" not in out or
+            len(os.listdir(results)) != SERVE_FRAMES or
+            launches["serve"] != {"kron_bf16": n_batches}):
+        raise RuntimeError(f"serving: serve launched {launches['serve']}, "
+                           f"wrote {len(os.listdir(results))} files")
+    load_s, first_s = float(m.group(1)), float(first.group(1))
+    steady_n, pairs_s = int(steady.group(1)), float(steady.group(2))
+    per_batch = steady.group(3)
+    # The artifact as serve loaded it, with the weights it served, against
+    # the eager pipeline with those weights on one batch.
+    sd = torch.load(os.path.join(calibrated, "params_export", PARAMS_FILE),
+                    map_location=dev, weights_only=True)
+    model = build_model(cfg).to(dev).eval()
+    model.load_state_dict(sd)
+    ids = [f"{i:06d}" for i in range(8)]
+    batch = serve.read_batch(*dirs, ".npy", ids, 8, cfg.data.image_h,
+                             cfg.data.image_w, cfg.backbone.pixel_means_bgr,
+                             dev)[:4]
+    eager = make_full_pipeline(cfg)
+    with _PlainCalls(sra) as plain:
+        ours = pipe(*batch)
+        ref = eager(model, *batch)
+        # Mean ms per call over RATIO_CALLS calls, in RATIO_TURNS
+        # alternating turns, so that the ratio comes with its spread.
+        ms = {"artifact": [], "eager": []}
+        for name, fn in (("artifact", pipe), ("eager", eager)) * RATIO_TURNS:
+            args = batch if name == "artifact" else (model, *batch)
+            ms[name].append(_events_ms(lambda: fn(*args), RATIO_CALLS))
+    ratio = [a / e for a, e in zip(ms["artifact"], ms["eager"])]
+    valid = ref.det.valid
+    diffs = {name: (getattr(ours.det, name) - getattr(ref.det, name)
+                    )[valid].abs().max().item()
+             for name in ("box_left", "box_right", "score")}
+    if (plain or not torch.equal(ours.det.valid, valid) or not valid.any()
+            or max(diffs.values()) > TOL_SERVE or
+            not torch.isfinite(ours.position[valid]).all()):
+        raise RuntimeError(f"serving: artifact vs eager valid "
+                           f"{int(ours.det.valid.sum())}/{int(valid.sum())},"
+                           f" diffs {diffs}, plain versions {plain}")
+    print(f"artifact vs eager make_full_pipeline, batch 8 of the tree: valid "
+          f"equal ({int(valid.sum())}), max |diff| " + ", ".join(
+              f"{k} {v:.2e}" for k, v in diffs.items()) +
+          f" (tol {TOL_SERVE}), positions finite; ms per call (CUDA events, "
+          f"mean of {RATIO_CALLS} calls, {RATIO_TURNS} alternating turns): "
+          f"artifact {', '.join(f'{v:.1f}' for v in ms['artifact'])} "
+          f"(median {np.median(ms['artifact']):.1f}), eager "
+          f"{', '.join(f'{v:.1f}' for v in ms['eager'])} (median "
+          f"{np.median(ms['eager']):.1f}); artifact/eager per turn "
+          f"{min(ratio):.3f}..{max(ratio):.3f} (median "
+          f"{np.median(ratio):.3f})  [{card}]", flush=True)
+    del pipe, model, ours, ref, batch, sd
+    torch.cuda.empty_cache()
+
+    # 5. Diagnose the checkpoint; 6. the demo on Config() (the gather).
+    _, out = counted("diag_3d", diag_3d.main, [
+        "--ckpt-dir", ck, "--batches", "1", "--batch", "8"])
+    if (not re.search(r"\d+ detections / \d+ gts / \d+ matched", out) or
+            not launches["diag_3d"].get("f32")):
+        raise RuntimeError(f"serving: diag_3d launched {launches['diag_3d']}")
+    png = os.path.join(work, "demo.png")
+    counted("demo", demo.main, ["--synthetic", "--out", png])
+    h, w = base.data.image_h, base.data.image_w
+    size = _png_size(png)
+    if size != (w, 2 * h + demo.bev_side(h, w)) or launches["demo"]:
+        raise RuntimeError(f"serving: demo PNG {size}, K1 launches "
+                           f"{launches['demo']} (the gather launches none)")
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    k1_serving = {}
+    for name, by_hat in launches.items():
+        for hat, n in by_hat.items():
+            k1_serving[hat] = k1_serving.get(hat, 0) + n
+    print(f"serving phase: {time.perf_counter() - t_phase:.1f} s; " +
+          ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) +
+          f"; artifact {mb:.1f} MB, traced in {trace_s:.1f} s, saved in "
+          f"{save_s:.1f} s, loaded in {load_s:.1f} s (serve); serve "
+          f"{SERVE_FRAMES} frames at batch 8: first batch {first_s:.3f} s, "
+          f"then {pairs_s:.2f} pairs/s over {steady_n} frames (loading "
+          f"excluded; per batch {per_batch}); demo PNG {size[0]}x{size[1]}; K1 launches by tool "
+          f"{launches}; plain versions 0 calls  [{card}]", flush=True)
+    return k1_serving
 
 
 def main(argv=None) -> int:
@@ -1200,7 +1477,8 @@ def main(argv=None) -> int:
     _, infer_launches, _ = phase("inference", inference, sra, dev, card)
     train = phase("training", training, sra, dev, card, args.train_steps)
     _, tool_k1, tool_k4 = phase("bench_roialign", bench_tool, sra)
-    cli = phase("tools", tools, sra, dev, card)
+    cli, work = phase("tools", tools, sra, dev, card)
+    served = phase("serving", serving, sra, dev, card, work)
 
     total = time.perf_counter() - t_start
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
@@ -1214,6 +1492,8 @@ def main(argv=None) -> int:
         if hat == "f32":
             paths["training"] = train["pallas"]["launches"]["K1"]
             paths["tools"] = cli["K1"]
+        if served.get(hat):
+            paths["serving"] = served[hat]
         paths["bench_roialign"] = tool_k1[hat]
         return paths
 

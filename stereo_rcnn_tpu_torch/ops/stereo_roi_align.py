@@ -21,6 +21,9 @@ transpose (as in the JAX package): it scatters a packed cotangent back
 through the f32 bilinear taps into float32 per-level gradients, cast to
 the features' dtype; the rois get no gradient.  K2 sums each gradient
 cell in one fixed order (no atomics), so two launches give the same bits.
+The forward is the registered op ``stereo_rcnn_tpu_torch::
+stereo_roi_align_fwd`` (:func:`stereo_roi_align_fwd`), so that
+``torch.export`` keeps it as one graph node; the op dispatches by device.
 
 K4 ports ``stereo_roi_align_pallas_atlas``: K1's f32 sampling over a
 row-packed level atlas (:func:`pack_atlas`, :func:`atlas_meta`), returning
@@ -683,6 +686,37 @@ stereo_roi_align_bwd_kernel = StereoRoIAlignBwdKernel()
 stereo_roi_align_atlas_kernel = StereoRoIAlignAtlasKernel()
 
 
+# K1's forward as a registered op, so that ``torch.export`` keeps it as one
+# graph node (it cannot trace a ctypes launch on ``data_ptr()``s); at run
+# time the node dispatches by device: CUDA tensors to K1, CPU tensors to
+# the plain version (looked up by name at each call), other devices raise.
+@torch.library.custom_op(
+    "stereo_rcnn_tpu_torch::stereo_roi_align_fwd", mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor[] feats_l, Tensor[] feats_r, Tensor rois_l, "
+           "Tensor rois_r, int[] strides, str hat) -> Tensor")
+def stereo_roi_align_fwd(feats_l, feats_r, rois_l, rois_r, strides, hat):
+    """``[B, R, 294, C]`` float32 for 4 levels a side, ``hat`` one of
+    :data:`TOOL_HAT_MODES`."""
+    return stereo_roi_align_packed_ref(feats_l, feats_r, rois_l, rois_r,
+                                       strides, hat)
+
+
+@stereo_roi_align_fwd.register_kernel("cuda")
+def _stereo_roi_align_fwd_cuda(feats_l, feats_r, rois_l, rois_r, strides,
+                               hat):
+    return stereo_roi_align_kernel(feats_l, feats_r, rois_l, rois_r, strides,
+                                   hat)
+
+
+@stereo_roi_align_fwd.register_fake
+def _stereo_roi_align_fwd_fake(feats_l, feats_r, rois_l, rois_r, strides,
+                               hat):
+    b, r = rois_l.shape[:2]
+    return rois_l.new_empty((b, r, ROWS, feats_l[0].shape[-1]),
+                            dtype=torch.float32)
+
+
 def stereo_roi_align_packed_bwd(g_packed, rois_l, rois_r, level_shapes,
                                 strides):
     """The gradient of :func:`stereo_roi_align_packed` w.r.t. the levels,
@@ -707,9 +741,8 @@ class _StereoRoIAlign(torch.autograd.Function):
         ctx.strides = strides
         ctx.level_shapes = [(f.shape[1], f.shape[2]) for f in feats_l]
         ctx.dtypes = [f.dtype for f in levels]
-        fn = on_device(rois_l.device, "stereo_roi_align_packed",
-                       stereo_roi_align_kernel, stereo_roi_align_packed_ref)
-        return fn(feats_l, feats_r, rois_l, rois_r, strides, hat)
+        return torch.ops.stereo_rcnn_tpu_torch.stereo_roi_align_fwd(
+            list(feats_l), list(feats_r), rois_l, rois_r, list(strides), hat)
 
     @staticmethod
     def backward(ctx, g_packed):

@@ -65,6 +65,34 @@ def test_k1_cuda_kernel_matches_plain(dtype, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hat", ["f32", "kron_bf16"])
+def test_registered_op_launches_k1(hat):
+    """``torch.ops.stereo_rcnn_tpu_torch.stereo_roi_align_fwd`` (the node
+    an exported program holds) on CUDA tensors launches K1 once and gives
+    the wrapper's bits; its result agrees with the plain version within
+    the mode's tolerance (1e-4 f32, 1e-5 kron)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fl, fr, rl, rr = _k1_inputs(256)
+    dev = torch.device("cuda")
+    tl = [torch.from_numpy(f).to(dev, torch.bfloat16) for f in fl]
+    tr = [torch.from_numpy(f).to(dev, torch.bfloat16) for f in fr]
+    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
+    k1 = t_sra.stereo_roi_align_kernel
+    before, by_hat = k1.launches, k1.launches_by_hat[hat]
+    out = torch.ops.stereo_rcnn_tpu_torch.stereo_roi_align_fwd(
+        tl, tr, rl_t, rr_t, list(STRIDES), hat)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    assert k1.launches_by_hat[hat] == by_hat + 1
+    assert out.shape == (2, 300, t_sra.ROWS, 256)
+    assert torch.equal(out, k1(tl, tr, rl_t, rr_t, STRIDES, hat))
+    ref = t_sra.stereo_roi_align_packed_ref(tl, tr, rl_t, rr_t, STRIDES, hat)
+    torch.testing.assert_close(out, ref, atol=1e-4 if hat == "f32" else 1e-5,
+                               rtol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c", [256, 34])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_cuda_kernel_matches_plain_backward(dtype, c):

@@ -1,7 +1,8 @@
 """The port runs where JAX cannot be imported.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
-``flax``, ``optax``, ``orbax`` and ``yaml``, imports the port (the
+``flax``, ``optax``, ``orbax``, ``yaml``, ``matplotlib``, ``cv2`` and
+``PIL``, imports the port (the
 windowed RoIAlign and the ``bench_roialign`` tool included), builds the
 tiny frozen-BN config and runs ``make_full_pipeline`` on the CPU with the
 fused RoIAlign and with the atlas gather (``roi_align_impl="xla"``), then
@@ -11,7 +12,9 @@ machine (which has no JAX) must.  Then it imports every module of the
 training and evaluation tools (``tools.train``, ``supervise_train``,
 ``eval_synth``, ``test_net``, ``smoke_e2e`` and what they use) and runs
 one ``tools.train`` step of that config, given as JSON, on a ``.npy``
-KITTI tree.
+KITTI tree.  Last it imports the serving, calibration, diagnosis, demo
+and upstream-import modules and runs ``tools.demo`` (which also refuses
+matplotlib, cv2 and PIL: the card's machine has none of them).
 """
 
 import os
@@ -25,7 +28,8 @@ SCRIPT = textwrap.dedent("""
     import importlib.abc
     import sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml",
+               "matplotlib", "cv2", "PIL")
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -116,6 +120,18 @@ SCRIPT = textwrap.dedent("""
         "--batch-per-device", "2", "--ckpt-dir", ck, "--platform", "cpu"]))
     assert final.step == 1
     assert os.path.exists(os.path.join(ck, "config.json"))
+
+    # Serving, calibration, diagnosis, the demo and the upstream import;
+    # the demo draws and writes its PNG without an image library.
+    for name in ("serving", "convert.norm_calibrate", "convert.resnet_import",
+                 "convert.stereo_import", "tools.export_model", "tools.serve",
+                 "tools.diag_3d", "tools.calibrate_norm", "tools.demo"):
+        importlib.import_module("stereo_rcnn_tpu_torch." + name)
+    from stereo_rcnn_tpu_torch.tools import demo
+    demo.main(["--synthetic", "--tiny", "--platform", "cpu", "--out",
+               os.path.join(work, "demo.png")])
+    with open(os.path.join(work, "demo.png"), "rb") as f:
+        assert f.read(4)[1:] == b"PNG"
     assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     print("OK", int(valid.sum()))
 """)
