@@ -1,5 +1,6 @@
 """Build the port's CUDA kernels and drive its inference, training,
-RoIAlign-benchmark, tools and serving paths once on one GPU.
+RoIAlign-benchmark, tools, data-parallel and serving paths once on one
+GPU (or, for the data-parallel phase, on every visible card).
 
     python3 chip_smoke.py
 
@@ -20,18 +21,23 @@ the CUDA toolkit (``nvcc``).  Phases, each raising on failure:
    inference, 128 at batch 8 for training) with edge-case rois, in
    bfloat16 and float32, all timed at batch 16 (kernel device time and
    wrapper call) beside a store-only floor (the output zeroed alone);
+   then every mode at an odd C = 255 (1-channel lanes), checked at batch 2
+   and timed at batch 16;
 4. K2 against its plain backward at the training shapes (batch 8, 128
    rois, C=256, bfloat16 levels) with edge-case rois; two launches must
-   give the same bits; the same at C=34 (its 2-channel lanes); timed at
-   C=256 beside the plain version and one ``index_add_`` of the same
-   scatter;
+   give the same bits; the same at C=34 (its 2-channel lanes) and C=255
+   (1-channel lanes, timed); timed at C=256 beside the plain version and
+   one ``index_add_`` of the same scatter;
 5. K3 through its entry point ``multilevel_roi_align_window`` (batched and
    unbatched) against its plain version at 1280x384, C=256, batch 16, 300
    rois, (P, s) = (7, 2) and (14, 1), bfloat16 and float32, timed beside
-   a store-only floor;
+   a store-only floor; the same at C=255 (1-channel lanes) at batch 2,
+   timed at batch 16;
 6. K4 against its plain version and against K1 f32 at batch 16, 300 rois,
    timed beside a store-only floor (the three outputs zeroed), its atlas
-   packing timed apart;
+   packing timed apart; at C=255 (1-channel lanes, timed at batch 16) and
+   C=2056 (beyond one pass of its 256 lanes x 8 channels, timed at batch
+   2) against its plain version at batch 2;
 7. the inference path, ``make_full_pipeline`` at full width (ResNet-101,
    FPN 256, fc 2048, 1280x384, bf16; one random model from seed 0 and
    rendered scenes, seed 7, 5 objects, reused) in three configurations,
@@ -91,6 +97,23 @@ the CUDA toolkit (``nvcc``).  Phases, each raising on failure:
     decode to 1280x1536).  No plain RoIAlign version and no K2 runs.  The
     trace, save and load seconds, the artifact's MB, ``serve``'s first
     batch and steady pairs/s and each tool's wall seconds are printed.
+13. data parallelism (run after phase 11, before phase 12), in spawned
+    rank processes (``parallel.launch.spawn``): ``synthetic_fullres_config()``
+    at batch 8 per rank over NCCL on every visible card (one rank: its
+    first step the same bits as one process, cuDNN deterministic), three
+    timed steps (ms/step, global pairs/s, peak memory per rank) and the
+    gradient all-reduce alone; two ranks (two gloo ranks on one card, CUDA
+    tensors; with several cards also two NCCL ranks) against one process
+    at batch 16 on the same rows, generator and weights, in float32 with
+    the RPN's objectness scaled 300x (loss within 1e-3, every top-level
+    module's update within 5e-3 in norm); sharded inference of ``bench.py``'s
+    program at global batch 16 over two ranks (NCCL on two cards, else
+    gloo on one): each rank's rows of the gathered detections the same
+    bits as its pipeline alone on them, ms per call; then, as
+    subprocesses on phase 11's tree, ``tools.train`` over the visible
+    cards (2 steps), a run stopped by SIGTERM after its first step (rc 75,
+    one checkpoint) and its ``--resume``, and ``tools.dryrun_multichip``;
+    each one's wall seconds are printed.
 
 Times of the kernels' previous versions (the two-channel K1 and K3, the
 atomic K2, the two-channel K4 and the wrappers that copied their tables
@@ -120,7 +143,6 @@ host, so comparing two commits takes several such runs in turns.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import contextlib
 import csv
 import dataclasses
@@ -258,6 +280,27 @@ def _levels(gen, b, c, dtype, dev):
                         device=dev).to(dtype) for s in STRIDES]
 
 
+# The channel counts that take the kernels' narrow lanes: an odd C
+# (1-channel lanes, K1-K4) and, for K4, a C above its block's 256 lanes x
+# 8 channels (a second pass of the lanes).  Each case draws from its own
+# generator, so the shared stream (and the digests of the C = 256 cases)
+# stays as it was.
+ODD_C = 255
+WIDE_C = 2056
+
+
+def _own_gen(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _timed(fn, kernel, plain_fn, n_bytes, plain_iters=2):
+    """Device ms of ``kernel`` over ``fn`` (profiler), the wrapper call's
+    ms, the plain version's ms and the bound (bytes)."""
+    return {"ms": _device_ms(fn, 20, kernel), "call_ms": _events_ms(fn, 20),
+            "plain_ms": _events_ms(plain_fn, plain_iters),
+            "bound_ms": _bound_ms(n_bytes)}
+
+
 def _level_bytes(b, c, itemsize):
     """Bytes of one side's P2..P5 at 1280x384."""
     return sum(b * (384 // s) * (1280 // s) * c * itemsize for s in STRIDES)
@@ -361,6 +404,7 @@ def check_k1(sra, dev, gen, card, digests=None):
             del out, ref
         del fl, fr
     torch.cuda.empty_cache()
+    odd = _k1_odd_c(sra, k1, dev, card, digests)
     for hat in sra.TOOL_HAT_MODES:
         print(f"K1 {hat} time at batch 16, bf16: kernel {ms[hat]:.3f} ms "
               f"(device; the two-channel kernel "
@@ -371,8 +415,54 @@ def check_k1(sra, dev, gen, card, digests=None):
               f"{store_ms:.3f} ms  [{card}]", flush=True)
     return {hat: {"max_abs_err": err[hat], "ms": ms[hat],
                   "call_ms": call_ms[hat], "plain_ms": plain_ms[hat],
-                  "bound_ms": bound, "store_floor_ms": store_ms}
+                  "bound_ms": bound, "store_floor_ms": store_ms,
+                  f"C={ODD_C}": odd[hat]}
             for hat in sra.TOOL_HAT_MODES}
+
+
+def _k1_odd_c(sra, k1, dev, card, digests):
+    """K1 at an odd C (1-channel lanes) in every mode against its plain
+    version at batch 2 (bf16 and float32 levels), each mode timed at batch
+    16 (bf16)."""
+    c, gen = ODD_C, _own_gen(dev, ODD_C)
+    out_stats = {hat: {"max_abs_err": 0.0} for hat in sra.TOOL_HAT_MODES}
+    for b, dtype in ((2, torch.bfloat16), (2, torch.float32),
+                     (16, torch.bfloat16)):
+        fl, fr = _levels(gen, b, c, dtype, dev), _levels(gen, b, c, dtype, dev)
+        rl = _edge_case_rois(gen, b, 300, dev)
+        rr = rl - torch.tensor([17.0, 0.0, 14.0, 0.0], device=dev)
+        for hat in sra.TOOL_HAT_MODES:
+            args = (fl, fr, rl, rr, STRIDES, hat)
+            if b == 16:
+                out = k1(*args)
+                out_stats[hat].update(_timed(
+                    lambda: k1(*args), "stereo_roi_align_kernel",
+                    lambda: sra.stereo_roi_align_packed_ref(*args),
+                    out.numel() * 4 + 2 * _level_bytes(b, c, 2), 1))
+                del out
+                continue
+            out = k1(*args)
+            ref = sra.stereo_roi_align_packed_ref(*args)
+            e, how = _k1_error(out, ref, hat, fl + fr)
+            if out[:, 2].abs().max().item() != 0.0:
+                raise RuntimeError(f"K1 C={c}: zero-area roi did not give "
+                                   "zeros")
+            out_stats[hat]["max_abs_err"] = max(
+                out_stats[hat]["max_abs_err"], e)
+            if digests is not None:
+                digests[f"K1 {hat} {dtype} B={b} R=300 C={c}"] = _sha256(out)
+            print(f"K1 {hat:9s} {str(dtype):14s} B={b} R=300 C={c} "
+                  f"(1-channel lanes): max abs err {e:.3e} ({how})",
+                  flush=True)
+            del out, ref
+        del fl, fr
+    torch.cuda.empty_cache()
+    for hat, st in out_stats.items():
+        print(f"K1 {hat} time at batch 16, bf16, C={c}: kernel "
+              f"{st['ms']:.3f} ms (device; {st['call_ms']:.3f} ms per "
+              f"wrapper call), plain {st['plain_ms']:.3f} ms, bound "
+              f"{st['bound_ms']:.3f} ms (bytes)  [{card}]", flush=True)
+    return out_stats
 
 
 def check_k2(sra, dev, gen, card, digests=None):
@@ -438,6 +528,7 @@ def check_k2(sra, dev, gen, card, digests=None):
           f"(tol {TOL_BWD:.0e} x level max |grad|), two launches "
           f"bit-identical", flush=True)
     del g34, a34, b34, r34
+    odd = _k2_odd_c(sra, k2, rl, rr, shapes, dev, card, digests)
     clocks = _clocks()
     ms = _device_ms(lambda: k2(*bargs), 20, "stereo_roi_align_bwd_kernel")
     call_ms = _events_ms(lambda: k2(*bargs), 20)
@@ -491,7 +582,50 @@ def check_k2(sra, dev, gen, card, digests=None):
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound, "library_ms": lib_ms,
-            "store_floor_ms": floor_ms, "one_box_ms": box_ms}
+            "store_floor_ms": floor_ms, "one_box_ms": box_ms,
+            f"C={ODD_C}": odd}
+
+
+def _k2_odd_c(sra, k2, rl, rr, shapes, dev, card, digests):
+    """K2 at an odd C (1-channel lanes) on the training shapes: against
+    its plain backward, two launches the same bits, timed."""
+    c = ODD_C
+    g = torch.randn(rl.shape[0], rl.shape[1], sra.ROWS, c, device=dev,
+                    generator=_own_gen(dev, c))
+    args = (g, rl, rr, shapes, STRIDES)
+    a, b = k2(*args), k2(*args)
+    ref = sra.stereo_roi_align_packed_bwd_ref(*args)
+    err = 0.0
+    for lvl, (x, y, r) in enumerate(zip(a[0] + a[1], b[0] + b[1],
+                                        ref[0] + ref[1])):
+        e = (x - r).abs().max().item()
+        if not (torch.equal(x, y) and e <= TOL_BWD * r.abs().max().item()):
+            raise RuntimeError(f"K2 C={c} level {lvl}: max abs err {e:.3e}, "
+                               f"two launches equal {torch.equal(x, y)}")
+        err = max(err, e)
+    if digests is not None:
+        for side, grads in (("left", a[0]), ("right", a[1])):
+            for lvl, d in enumerate(grads):
+                digests[f"K2 B={rl.shape[0]} R={rl.shape[1]} C={c} {side} "
+                        f"P{lvl + 2}"] = _sha256(d)
+    meta_l, _ = sra.roi_window_meta(shapes, rl, STRIDES)
+    meta_r, _ = sra.roi_window_meta(shapes, rr, STRIDES)
+    n_bytes = ((int((meta_l[..., 3] > 0).sum()) * (sra.PK * sra.PK +
+                                                   sra.P * sra.P) +
+                int((meta_r[..., 3] > 0).sum()) * sra.P * sra.P) * c * 4 +
+               sum(d.numel() * 4 for d in a[0] + a[1]))
+    st = {"max_abs_err": err, **_timed(
+        lambda: k2(*args), "stereo_roi_align_bwd_kernel",
+        lambda: sra.stereo_roi_align_packed_bwd_ref(*args), n_bytes, 3)}
+    print(f"K2 B={rl.shape[0]} R={rl.shape[1]} C={c} (1-channel lanes): max "
+          f"abs err {err:.3e} (tol {TOL_BWD:.0e} x level max |grad|), two "
+          f"launches bit-identical; kernel {st['ms']:.3f} ms (device; "
+          f"{st['call_ms']:.3f} ms per wrapper call), plain "
+          f"{st['plain_ms']:.3f} ms, bound {st['bound_ms']:.3f} ms (bytes)"
+          f"  [{card}]", flush=True)
+    del g, a, b, ref
+    torch.cuda.empty_cache()
+    return st
 
 
 def check_k3(dev, gen, card, digests=None):
@@ -562,10 +696,55 @@ def check_k3(dev, gen, card, digests=None):
         del out, out1, ref
     del feats
     torch.cuda.empty_cache()
+    odd = _k3_odd_c(win, k3, dev, card, digests)
     head = res[torch.bfloat16, 7, 2]
     return {"max_abs_err": err, **head, "launches": launches,
             "by_case": {f"{str(d).split('.')[-1]} P={p} s={s}": v
-                        for (d, p, s), v in res.items()}}
+                        for (d, p, s), v in res.items()},
+            f"C={ODD_C}": odd}
+
+
+def _k3_odd_c(win, k3, dev, card, digests):
+    """K3 at an odd C (1-channel lanes) through its entry point against
+    its plain version at batch 2 (bf16 and float32, both (P, s)), timed at
+    batch 16 (bf16)."""
+    c, gen = ODD_C, _own_gen(dev, ODD_C + 1)
+    stats = {}
+    for b, dtype in ((2, torch.bfloat16), (2, torch.float32),
+                     (16, torch.bfloat16)):
+        f = _levels(gen, b, c, dtype, dev)
+        rois = _edge_case_rois(gen, b, 300, dev)
+        for p, s in ((7, 2), (14, 1)):
+            args = (f, rois, STRIDES, p, s)
+            out = win.multilevel_roi_align_window(*args)
+            if b == 16:
+                stats[f"P={p} s={s}"] = _timed(
+                    lambda: win.multilevel_roi_align_window(*args),
+                    "roi_align_window_kernel",
+                    lambda: win.multilevel_roi_align_window_ref(*args),
+                    out.numel() * 4 + _level_bytes(b, c, 2))
+                continue
+            ref = win.multilevel_roi_align_window_ref(*args)
+            e = (out - ref).abs().max().item()
+            if not e <= TOL:
+                raise RuntimeError(f"K3 C={c} {dtype} ({p}, {s}): max abs "
+                                   f"err {e:.3e} > {TOL:.0e}")
+            stats["max_abs_err"] = max(stats.get("max_abs_err", 0.0), e)
+            if digests is not None:
+                digests[f"K3 {dtype} P={p} s={s} B={b} C={c}"] = _sha256(out)
+            print(f"K3 {str(dtype):14s} (P, s) = ({p:2d}, {s}) B={b} R=300 "
+                  f"C={c} (1-channel lanes): max abs err {e:.3e} (tol "
+                  f"{TOL:.0e})", flush=True)
+            del out, ref
+        del f
+    for case in ("P=7 s=2", "P=14 s=1"):
+        st = stats[case]
+        print(f"K3 {case} time at batch 16, bf16, C={c}: kernel "
+              f"{st['ms']:.3f} ms (device; {st['call_ms']:.3f} ms per call)"
+              f", plain {st['plain_ms']:.3f} ms, bound {st['bound_ms']:.3f} "
+              f"ms (bytes)  [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return stats
 
 
 def check_k4(sra, dev, gen, card, digests=None):
@@ -639,7 +818,61 @@ def check_k4(sra, dev, gen, card, digests=None):
     return {"max_abs_err": err, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound,
             "store_floor_ms": store_ms, "pack_ms": pack_ms,
-            "pack_bound_ms": pack_bound}
+            "pack_bound_ms": pack_bound,
+            **_k4_any_c(sra, k4, dev, card, digests)}
+
+
+def _k4_any_c(sra, k4, dev, card, digests):
+    """K4 at an odd C (1-channel lanes) and at a C beyond one pass of its
+    lanes, against its plain version at batch 2 (bf16 and float32); the
+    odd C timed at batch 16, the wide one at batch 2 (bf16)."""
+    res = {}
+    for c, b_time in ((ODD_C, 16), (WIDE_C, 2)):
+        gen = _own_gen(dev, c)
+        st = {"max_abs_err": 0.0}
+        for b, dtype, check in ((2, torch.bfloat16, True),
+                                (2, torch.float32, True),
+                                (b_time, torch.bfloat16, False)):
+            fl = _levels(gen, b, c, dtype, dev)
+            fr = _levels(gen, b, c, dtype, dev)
+            rl = _edge_case_rois(gen, b, 300, dev)
+            rr = rl - torch.tensor([17.0, 0.0, 14.0, 0.0], device=dev)
+            shapes = [(f.shape[1], f.shape[2]) for f in fl]
+            atlas_l, atlas_r = sra.pack_atlas(fl)[0], sra.pack_atlas(fr)[0]
+            args = (atlas_l, atlas_r, shapes, rl, rr, STRIDES)
+            out = k4(*args)
+            if not check:
+                st.update(_timed(
+                    lambda: k4(*args), "stereo_roi_align_atlas_kernel",
+                    lambda: sra.stereo_roi_align_atlas_ref(fl, fr, rl, rr,
+                                                           STRIDES),
+                    sum(o.numel() * 4 for o in out) +
+                    2 * _level_bytes(b, c, 2)))
+                del fl, fr, out, atlas_l, atlas_r
+                continue
+            ref = sra.stereo_roi_align_atlas_ref(fl, fr, rl, rr, STRIDES)
+            e = max((o - x).abs().max().item() for o, x in zip(out, ref))
+            if not e <= TOL:
+                raise RuntimeError(f"K4 C={c} {dtype}: max abs err {e:.3e} "
+                                   f"> {TOL:.0e}")
+            if any(o[:, 2].abs().max().item() != 0.0 for o in out):
+                raise RuntimeError(f"K4 C={c}: zero-area roi did not give "
+                                   "zeros")
+            st["max_abs_err"] = max(st["max_abs_err"], e)
+            if digests is not None:
+                for name, o in zip(("7l", "7r", "14l"), out):
+                    digests[f"K4 {name} {dtype} B={b} R=300 C={c}"] = \
+                        _sha256(o)
+            print(f"K4 {str(dtype):14s} B={b} R=300 C={c}: max abs err "
+                  f"{e:.3e} vs plain (tol {TOL:.0e})", flush=True)
+            del fl, fr, out, ref, atlas_l, atlas_r
+        torch.cuda.empty_cache()
+        print(f"K4 time at batch {b_time}, bf16, C={c}: kernel "
+              f"{st['ms']:.3f} ms (device; {st['call_ms']:.3f} ms per "
+              f"wrapper call), plain {st['plain_ms']:.3f} ms, bound "
+              f"{st['bound_ms']:.3f} ms (bytes)  [{card}]", flush=True)
+        res[f"C={c}"] = st
+    return res
 
 
 def _check_detections(out, b, d):
@@ -1404,6 +1637,410 @@ def serving(sra, dev, card, work):
     return k1_serving
 
 
+# Phase 13's tolerance for several ranks against one process at the global
+# batch: the loss, relative; and each top-level module's update (new - old)
+# in norm, ||dp - one|| / ||one||.  cuDNN picks its algorithms by batch
+# size, so the two sum in other orders.  In bf16 a feature one rounding
+# apart reorders near-equal random proposal scores, and the sampled rois
+# differ (measured on "NVIDIA H100 80GB HBM3, 700.00 W", two gloo ranks of
+# one card: loss 2.6e-3 apart, the keypoint head's update 0.26); so the
+# check runs in float32 with the RPN's objectness scaled up 300x (scores
+# saturate, ties broken by index), as the CPU parity tests do: measured
+# loss 2.6e-7 apart, updates 5.5e-4 at most (backbone).
+TOL_DP_LOSS = 1e-3
+TOL_DP_UPDATE = 5e-3
+
+
+def _flat(tree):
+    """The tensors of nested tuples, in order."""
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in _flat(t)]
+    return [tree]
+
+
+def _dp_train_rank(batch_path, backend, one_card, steps, out_path,
+                   compute_dtype, rpn_scale, compare):
+    """One rank of phase 13's training check (a spawned process):
+    ``synthetic_fullres_config()`` in ``compute_dtype`` with the RPN's
+    objectness scaled by ``rpn_scale`` (its deltas divided by it); one
+    data-parallel step from the initial state, with ``compare`` held on
+    rank 0 against one process at the global batch (cuDNN deterministic
+    for both: with one rank the two must be the same bits), then
+    ``steps`` timed steps and the gradient all-reduce alone."""
+    from stereo_rcnn_tpu_torch.config import synthetic_fullres_config
+    from stereo_rcnn_tpu_torch.ops import stereo_roi_align as sra
+    from stereo_rcnn_tpu_torch.parallel import (data_parallel_train_step,
+                                                make_mesh, replicate,
+                                                shard_batch)
+    from stereo_rcnn_tpu_torch.parallel.mesh import all_reduce_gradients
+    from stereo_rcnn_tpu_torch.train import (Batch, init_train_state,
+                                             make_train_step, step_generator)
+    from stereo_rcnn_tpu_torch.train.step import trainable_params
+    from stereo_rcnn_tpu_torch.train.targets import (GroundTruth,
+                                                     ground_truth_to_torch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(synthetic_fullres_config(),
+                              compute_dtype=compute_dtype)
+    k1, k2 = sra.stereo_roi_align_kernel, sra.stereo_roi_align_bwd_kernel
+    with make_mesh(device="cuda:0" if one_card else None,
+                   backend=backend) as mesh:
+        dev = mesh.device
+        gb = cfg.train.batch_per_device * mesh.data_size
+        with np.load(batch_path) as z:
+            il, ir = z["il"][:gb], z["ir"][:gb]
+            gt = GroundTruth(*[z[k][:gb] for k in GroundTruth._fields])
+
+        def on_dev(l_, r_, g_):
+            return Batch(torch.from_numpy(l_).to(dev),
+                         torch.from_numpy(r_).to(dev),
+                         ground_truth_to_torch(g_, dev))
+        local = on_dev(*shard_batch(mesh, (il, ir, gt)))
+        state = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                 device=dev)
+        with torch.no_grad():
+            rpn = state.model.RCNN_rpn
+            rpn.RPN_cls_score.weight.mul_(rpn_scale)
+            rpn.RPN_bbox_pred.weight.div_(rpn_scale)
+        replicate(mesh, [state.model, state.uncert])
+        start = {k: v.detach().clone()
+                 for k, v in state.model.state_dict().items()}
+        start_u = state.uncert.detach().clone()
+        step = data_parallel_train_step(make_train_step(cfg, device=dev),
+                                        mesh)
+        torch.backends.cudnn.deterministic = True
+        metrics = step(state, local, step_generator(1, 0, dev))
+        res = {"rank": mesh.rank, "world": mesh.world_size,
+               "backend": mesh.backend, "total": float(metrics["total"])}
+        if compare and mesh.rank == 0:
+            dp = {k: v.detach().clone()
+                  for k, v in trainable_params(state).items()}
+            ref = init_train_state(cfg, state_dict={**start,
+                                                    "uncert": start_u},
+                                   device=dev)
+            ref_m = make_train_step(cfg, device=dev)(
+                ref, on_dev(il, ir, gt), step_generator(1, 0, dev))
+            one = trainable_params(ref)
+            res["ref_total"] = float(ref_m["total"])
+            res["same_bits"] = (
+                all(torch.equal(dp[k], one[k]) for k in dp) and
+                all(torch.equal(state.trace[k], ref.trace[k])
+                    for k in ref.trace) and
+                all(torch.equal(metrics[k], ref_m[k]) for k in ref_m))
+            by_mod = {}
+            for k, v in dp.items():
+                old = start_u if k == "uncert" else start[k]
+                d, o = by_mod.setdefault(k.split(".")[0], [0.0, 0.0])
+                by_mod[k.split(".")[0]] = [
+                    d + float((v - one[k]).detach().double().square().sum()),
+                    o + float((one[k] - old).detach().double().square()
+                              .sum())]
+            res["update_rel"] = {m: (d / o) ** 0.5 if o else 0.0
+                                 for m, (d, o) in by_mod.items()}
+            del ref, one, dp
+            torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = False
+        mesh.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        k1.reset_counts()
+        k2.reset_counts()
+        times = []
+        for i in range(steps):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            metrics = step(state, local, step_generator(1, i + 1, dev),
+                           reduce_metrics=i + 1 == steps)
+            t1.record()
+            torch.cuda.synchronize(dev)
+            times.append(t0.elapsed_time(t1))
+        res["launches"] = {"K1": k1.launches, "K2": k2.launches}
+        res["last_total"] = float(metrics["total"])
+        res["times"] = times
+        res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        params = trainable_params(state)
+        ar = []
+        for _ in range(5):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            all_reduce_gradients(mesh, params)
+            t1.record()
+            torch.cuda.synchronize(dev)
+            ar.append(t0.elapsed_time(t1))
+        res["allreduce_ms"] = ar
+        res["grad_mb"] = sum(p.grad.numel() * p.grad.element_size()
+                             for p in params.values()
+                             if p.grad is not None) / 1e6
+    with open(f"{out_path}.{res['rank']}.json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _dp_infer_rank(inputs_path, backend, one_card, calls, out_path):
+    """One rank of phase 13's sharded inference: ``bench.py``'s program on
+    this rank's rows, alone and through ``data_parallel_inference``."""
+    from stereo_rcnn_tpu_torch import Config, init_params, make_full_pipeline
+    from stereo_rcnn_tpu_torch.inference import broadcast_calib
+    from stereo_rcnn_tpu_torch.ops import stereo_roi_align as sra
+    from stereo_rcnn_tpu_torch.parallel import (batch_sharding,
+                                                data_parallel_inference,
+                                                make_mesh, replicate)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = Config()
+    cfg = dataclasses.replace(base, rcnn=dataclasses.replace(
+        base.rcnn, roi_align_impl="pallas", roi_align_hat="kron_bf16"))
+    k1 = sra.stereo_roi_align_kernel
+    with make_mesh(device="cuda:0" if one_card else None,
+                   backend=backend) as mesh:
+        dev = mesh.device
+        il, ir, calib = torch.load(inputs_path, weights_only=False)
+        b = il.shape[0]
+        left = torch.from_numpy(il).to(dev)
+        right = torch.from_numpy(ir).to(dev)
+        calib_b = broadcast_calib(calib, b, dev)
+        model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        replicate(mesh, model)
+        fn = make_full_pipeline(cfg)
+        rows = batch_sharding(mesh).rows(b)
+        alone = fn(model, left[rows], right[rows],
+                   type(calib_b)(*[x[rows] for x in calib_b]))
+        infer = data_parallel_inference(fn, mesh)
+        k1.reset_counts()
+        out = infer(model, left, right, calib_b)
+        torch.cuda.synchronize(dev)
+        launches = dict(k1.launches_by_hat)
+        same = all(torch.equal(g[rows], a)
+                   for g, a in zip(_flat(out), _flat(alone)))
+        n_det = _check_detections(out, b, cfg.rcnn.max_detections)
+        walls = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            infer(model, left, right, calib_b)
+            torch.cuda.synchronize(dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        res = {"rank": mesh.rank, "world": mesh.world_size,
+               "backend": mesh.backend, "rows": [rows.start, rows.stop],
+               "same_bits": same, "n_det": n_det, "launches": launches,
+               "ms": walls}
+    with open(f"{out_path}.{res['rank']}.json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _rank_results(out_path, n):
+    out = []
+    for r in range(n):
+        with open(f"{out_path}.{r}.json") as f:
+            out.append(json.load(f))
+    return out
+
+
+def _spawned(what, fn, n, *args):
+    from stereo_rcnn_tpu_torch.parallel.launch import spawn
+    t0 = time.perf_counter()
+    codes = spawn(fn, n, *args, timeout=900)
+    wall = time.perf_counter() - t0
+    if codes != [0] * n:
+        raise RuntimeError(f"data_parallel: {what} ranks exited {codes}")
+    return wall
+
+
+def data_parallel(sra, dev, card, work):
+    """Phase 13: data parallelism over ``torch.distributed`` at full width,
+    in spawned rank processes: the training step over the visible cards
+    (NCCL), two gloo ranks on one card against one process at batch 16,
+    sharded inference of ``bench.py``'s program over two ranks, then
+    ``tools.train`` over the visible cards (2 steps; SIGTERM during a step
+    and ``--resume``) and ``tools.dryrun_multichip``."""
+    import os
+    import signal
+    import shutil
+
+    from stereo_rcnn_tpu_torch import Config, synthetic_images
+    from stereo_rcnn_tpu_torch.config import synthetic_fullres_config
+    from stereo_rcnn_tpu_torch.data.synthetic import synthetic_batch
+    from stereo_rcnn_tpu_torch.train.checkpoint import latest_step
+
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    dp_dir = os.path.join(work, "data_parallel")
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    os.makedirs(dp_dir)
+    t0 = time.perf_counter()
+    cfg = synthetic_fullres_config()
+    il, ir, gt, _ = synthetic_batch(cfg, 8 * max(n, 2), seed=7, n_objects=5)
+    batch_path = os.path.join(dp_dir, "batch.npz")
+    np.savez(batch_path, il=il, ir=ir, **gt._asdict())
+    il, ir, calib = synthetic_images(Config(), 16, seed=7, n_objects=5)
+    infer_path = os.path.join(dp_dir, "infer.pt")
+    torch.save((il, ir, calib), infer_path)
+    del il, ir, gt
+    torch.cuda.empty_cache()
+    print(f"data_parallel: rendered {8 * max(n, 2)} training and 16 "
+          f"inference scenes in {time.perf_counter() - t0:.1f} s; {n} "
+          f"visible card(s)", flush=True)
+    walls, out = {}, {"launches": {"K1": 0, "K2": 0, "K1 kron_bf16": 0}}
+
+    # 1, 2. The training step: NCCL over the visible cards, then two gloo
+    # ranks on one card.
+    # The shipped config (bf16) over every card: one rank must give the
+    # bits of one process; on several cards it is timed, and two of them
+    # run the float32 check (TOL_DP_UPDATE) against one process at batch
+    # 16, as two gloo ranks of one card do everywhere.
+    runs = [("nccl", "nccl", False, n, "bfloat16", 1.0, n == 1)]
+    if n >= 2:
+        runs.append(("nccl, 2 cards", "nccl", False, 2, "float32", 300.0,
+                     True))
+    runs.append(("gloo, one card", "gloo", True, 2, "float32", 300.0, True))
+    for what, backend, one_card, world, dtype, rpn_scale, compare in runs:
+        path = os.path.join(dp_dir, f"train_{len(walls)}")
+        walls[f"train {what}"] = _spawned(what, _dp_train_rank, world,
+                                          batch_path, backend, one_card, 3,
+                                          path, dtype, rpn_scale, compare)
+        res = _rank_results(path, world)
+        lead = res[0]
+        if not compare:
+            ok, how = True, "timed only (the check runs on 2 cards)"
+        elif world == 1:
+            ok = lead["same_bits"]
+            how = "the same bits as one process (cuDNN deterministic)"
+        else:
+            rel_loss = abs(lead["total"] - lead["ref_total"]) / abs(
+                lead["ref_total"])
+            worst = max(lead["update_rel"].values())
+            ok = rel_loss <= TOL_DP_LOSS and worst <= TOL_DP_UPDATE
+            how = (f"float32, RPN objectness x{rpn_scale:.0f}: loss "
+                   f"{rel_loss:.2e} from one process at batch "
+                   f"{8 * world} (tol {TOL_DP_LOSS:.0e}), updates by module "
+                   + ", ".join(f"{m} {v:.2e}"
+                               for m, v in lead["update_rel"].items()) +
+                   f" (tol {TOL_DP_UPDATE:.0e} in norm)")
+        launches = [r["launches"] for r in res]
+        if not ok or any(l_ != {"K1": 3, "K2": 3} for l_ in launches):
+            raise RuntimeError(f"data_parallel {what}: {how}; launches "
+                               f"{launches}")
+        for r in res:
+            out["launches"]["K1"] += r["launches"]["K1"]
+            out["launches"]["K2"] += r["launches"]["K2"]
+        ms = sorted(lead["times"])[len(lead["times"]) // 2]
+        ar = sorted(lead["allreduce_ms"])[len(lead["allreduce_ms"]) // 2]
+        peaks = ", ".join(f"{r['peak_gib']:.2f}" for r in res)
+        out[f"train {what}"] = {"ms": ms, "allreduce_ms": ar,
+                                "world": world, "dtype": dtype}
+        print(f"data_parallel train, {what}, {world} rank(s) x batch 8, "
+              f"{dtype}: "
+              f"{how}; {ms:.1f} ms/step (median of "
+              f"{', '.join(f'{t:.1f}' for t in lead['times'])}), "
+              f"{8 * world * 1000.0 / ms:.2f} global pairs/s; gradient "
+              f"all-reduce {ar:.2f} ms ({lead['grad_mb']:.0f} MB, median of "
+              f"5); peak memory per rank {peaks} GiB; K1 "
+              f"and K2 3 launches per rank; wall {walls[f'train {what}']:.1f}"
+              f" s  [{card}]", flush=True)
+
+    # 3. Sharded inference over two ranks (NCCL on two cards, else gloo on
+    # one).
+    world = 2
+    backend = "nccl" if n >= 2 else "gloo"
+    path = os.path.join(dp_dir, "infer")
+    walls["inference"] = _spawned("inference", _dp_infer_rank, world,
+                                  infer_path, backend, n < 2, 3, path)
+    res = _rank_results(path, world)
+    if not all(r["same_bits"] and r["launches"]["kron_bf16"] == 1
+               for r in res):
+        raise RuntimeError(f"data_parallel inference: {res}")
+    out["launches"]["K1 kron_bf16"] = sum(r["launches"]["kron_bf16"]
+                                          for r in res)
+    ms = sorted(res[0]["ms"])[1]
+    out["inference"] = {"ms": ms, "backend": backend}
+    print(f"data_parallel inference, bench.py's program at global batch 16 "
+          f"over {world} {backend} ranks: each rank's rows of the gathered "
+          f"detections equal its pipeline alone on them bit for bit "
+          f"(rows {[r['rows'] for r in res]}), {res[0]['n_det']} detections"
+          f", finite; {ms:.1f} ms per call (median of 3: "
+          f"{', '.join(f'{t:.1f}' for t in res[0]['ms'])}); K1 kron_bf16 1 "
+          f"launch per rank  [{card}]", flush=True)
+
+    # 4. The CLIs over the visible cards, on the tools phase's tree.
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.getcwd() + os.pathsep + env.get("PYTHONPATH", "")
+    tree = os.path.join(work, "kitti")
+    common = ["--config", os.path.join(work, "synthetic_fullres.json"),
+              "--kitti-root", tree, "--image-ext", ".npy",
+              "--batch-per-device", "8", "--disp-interval", "1"]
+
+    def cli(name, *args):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m",
+                               f"stereo_rcnn_tpu_torch.tools.{name}", *args],
+                              capture_output=True, text=True, env=env,
+                              timeout=900)
+        return proc, time.perf_counter() - t0
+
+    ck_a = os.path.join(dp_dir, "ckpt_a")
+    proc, walls["train 2 steps"] = cli("train", *common, "--ckpt-dir", ck_a,
+                                       "--epochs", "2")
+    if (proc.returncode != 0 or latest_step(ck_a) != 2 or
+            f"devices: {n}, global batch: {8 * n}" not in proc.stdout):
+        raise RuntimeError(f"data_parallel: tools.train rc "
+                           f"{proc.returncode}\n{proc.stdout}{proc.stderr}")
+    ck_b = os.path.join(dp_dir, "ckpt_b")
+    t0 = time.perf_counter()
+    trainer = subprocess.Popen(
+        [sys.executable, "-m", "stereo_rcnn_tpu_torch.tools.train", *common,
+         "--ckpt-dir", ck_b, "--epochs", "50", "--ckpt-every", "1000"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+    lines = []
+    try:
+        for line in trainer.stdout:
+            lines.append(line)
+            if line.startswith("[step 1]"):
+                # Past the first epoch's end (one step an epoch here),
+                # into the second step's batch loading or step.
+                time.sleep(0.5)
+                trainer.send_signal(signal.SIGTERM)
+                break
+        rest, _ = trainer.communicate(timeout=600)
+        lines.append(rest)
+    finally:
+        if trainer.poll() is None:
+            trainer.kill()
+            trainer.wait()
+    walls["train SIGTERM"] = time.perf_counter() - t0
+    text = "".join(lines)
+    saved = latest_step(ck_b)
+    ckpts = [f for f in os.listdir(ck_b) if f.startswith("ckpt_")]
+    # The flag is read after each step and at each epoch's end.
+    if (trainer.returncode != 75 or saved is None or len(ckpts) != 1 or
+            not re.search(rf"preempted at (step {saved} |epoch boundary "
+                          rf"{saved}/)", text)):
+        raise RuntimeError(f"data_parallel: SIGTERM run rc "
+                           f"{trainer.returncode}, checkpoints {ckpts}\n"
+                           f"{text}")
+    proc, walls["train --resume"] = cli("train", *common, "--ckpt-dir", ck_b,
+                                        "--epochs", "3", "--resume")
+    if (proc.returncode != 0 or latest_step(ck_b) != 3 or
+            f"resumed from step {saved}" not in proc.stdout):
+        raise RuntimeError(f"data_parallel: --resume rc {proc.returncode}"
+                           f"\n{proc.stdout}{proc.stderr}")
+    proc, walls["dryrun_multichip"] = cli("dryrun_multichip")
+    if (proc.returncode != 0 or "train OK" not in proc.stdout or
+            "inference OK" not in proc.stdout):
+        raise RuntimeError(f"data_parallel: dryrun_multichip rc "
+                           f"{proc.returncode}\n{proc.stdout}{proc.stderr}")
+    print("  dryrun_multichip| " + "\n  dryrun_multichip| ".join(
+        proc.stdout.strip().splitlines()), flush=True)
+    shutil.rmtree(dp_dir)
+    out["saved_at"] = saved
+    print(f"data_parallel phase: {time.perf_counter() - t_phase:.1f} s; "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) +
+          f"; SIGTERM: rc 75, one checkpoint at step {saved}, --resume to "
+          f"step 3; launches on the path {out['launches']}  [{card}]",
+          flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--training-only", action="store_true",
@@ -1421,6 +2058,7 @@ def main(argv=None) -> int:
                          "this check needs a CUDA device")
     from stereo_rcnn_tpu_torch.ops import roi_align_window as win
     from stereo_rcnn_tpu_torch.ops import stereo_roi_align as sra
+    from stereo_rcnn_tpu_torch.ops.cuda_build import load_kernels
 
     t_start = time.perf_counter()
     phase_s = {}
@@ -1449,9 +2087,7 @@ def main(argv=None) -> int:
 
     # -- 2. build ---------------------------------------------------------
     def build():
-        with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
-            for fut in [pool.submit(k.load) for k in kernels]:
-                fut.result()
+        load_kernels(kernels)
         for k in kernels:
             print(f"  {k.source}: {k.build_info.seconds:.1f} s nvcc "
                   f"({k.build_info.path})")
@@ -1478,6 +2114,7 @@ def main(argv=None) -> int:
     train = phase("training", training, sra, dev, card, args.train_steps)
     _, tool_k1, tool_k4 = phase("bench_roialign", bench_tool, sra)
     cli, work = phase("tools", tools, sra, dev, card)
+    dp = phase("data_parallel", data_parallel, sra, dev, card, work)
     served = phase("serving", serving, sra, dev, card, work)
 
     total = time.perf_counter() - t_start
@@ -1492,6 +2129,9 @@ def main(argv=None) -> int:
         if hat == "f32":
             paths["training"] = train["pallas"]["launches"]["K1"]
             paths["tools"] = cli["K1"]
+            paths["data_parallel training"] = dp["launches"]["K1"]
+        if hat == "kron_bf16":
+            paths["data_parallel inference"] = dp["launches"]["K1 kron_bf16"]
         if served.get(hat):
             paths["serving"] = served[hat]
         paths["bench_roialign"] = tool_k1[hat]
@@ -1511,6 +2151,7 @@ def main(argv=None) -> int:
     k2_paths.update({f"training {impl}": t["launches"]["K2"]
                      for impl, t in train.items()})
     k2_paths["tools"] = cli["K2"]
+    k2_paths["data_parallel training"] = dp["launches"]["K2"]
     entries.append({
         "name": "stereo_roi_align_bwd", "route": "cuda",
         "source": "stereo_rcnn_tpu_torch/csrc/stereo_roi_align_bwd.cu",
@@ -1526,7 +2167,8 @@ def main(argv=None) -> int:
         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "store_floor_ms": k3["store_floor_ms"], "bound_by": "bytes",
-        "library_ms": None, "by_case": k3["by_case"]})
+        "library_ms": None, "by_case": k3["by_case"],
+        f"C={ODD_C}": k3[f"C={ODD_C}"]})
     entries.append({
         "name": "stereo_roi_align_atlas", "route": "cuda",
         "source": "stereo_rcnn_tpu_torch/csrc/stereo_roi_align_atlas.cu",

@@ -16,7 +16,7 @@
 //     of a 1-cell roi, not zeros.
 // A sample reads floor(p) and min(floor(p) + 1, win - 1) with weights
 // 1 - frac and frac (the TPU kernel's hat weights max(0, 1 - |cell - p|)),
-// y first, then x.  Any P and s with P * s <= 64, up to 5 levels, C even.
+// y first, then x.  Any P and s with P * s <= 64, up to 5 levels, any C.
 //
 // What bounds it on an H100: memory traffic.  It writes P * P * C float32
 // per roi (50 KB at P = 7, C = 256) and reads the levels of one side; the
@@ -35,7 +35,8 @@
 // - each lane owns kVec = 8 neighbouring channels (vec.cuh): one 16-byte
 //   load per bf16 tap, two float4 loads per float32 tap; a C that is not a
 //   multiple of 8 (or a level that is not 16-byte aligned) takes 2-channel
-//   lanes, the same kernel with kVec = 2, chosen by the C entry;
+//   lanes, the same kernel with kVec = 2, and an odd C 1-channel lanes
+//   (kVec = 1), chosen by the C entry;
 // - the block's ~256 threads are (C / kVec) lanes x groups; group g takes
 //   the bins g, g + groups, ... of the P x P;
 // - each bin is stored as float4 with __stcs, streaming past L2.
@@ -175,9 +176,10 @@ void launch(int blocks, int c, int p, int s, cudaStream_t st,
 // to NHWC levels [B, h, w, C]; level_hw / win_hw: host arrays (h0, w0, h1,
 // w1, ...); meta: int32 [B, R, 4] (level, y0, x0, valid) and geom: float32
 // [B, R, 4] (y1, x1, bin_h, bin_w) on the device; out: float32
-// [B, R, P, P, C].  n_levels <= 5, P * s <= 64, C even: 8-channel lanes
+// [B, R, P, P, C].  n_levels <= 5, P * s <= 64, any C: 8-channel lanes
 // where C is a multiple of 8 and every level and the output are 16-byte
-// aligned, else 2-channel lanes.  Returns cudaGetLastError(), or
+// aligned, else 2-channel lanes for an even C, else 1-channel lanes
+// (vec.cuh lane_width).  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for sizes it does not take.
 extern "C" int roi_align_window_fwd(const void* const* feats,
                                     const int* level_hw, const int* win_hw,
@@ -186,11 +188,11 @@ extern "C" int roi_align_window_fwd(const void* const* feats,
                                     int n_rois, int c, int p, int s,
                                     int is_bf16, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || p * s > kMaxSamples ||
-      p < 1 || s < 1 || c % 2) {
+      p < 1 || s < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Levels lv;
-  bool wide = c % 8 == 0 && aligned16(out);
+  bool wide = aligned16(out);
   for (int l = 0; l < kMaxLevels; ++l) {
     const int k = l < n_levels ? l : 0;
     lv.feat[l] = feats[k];
@@ -203,16 +205,22 @@ extern "C" int roi_align_window_fwd(const void* const* feats,
   const int blocks = batch * n_rois;
   if (blocks == 0 || c == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && wide) {
+  const int vec = lane_width(c, wide);
+  if (is_bf16 && vec == 8) {
     launch<__nv_bfloat16, 8>(blocks, c, p, s, st, lv, meta, geom, out,
                              n_rois);
-  } else if (is_bf16) {
+  } else if (is_bf16 && vec == 2) {
     launch<__nv_bfloat16, 2>(blocks, c, p, s, st, lv, meta, geom, out,
                              n_rois);
-  } else if (wide) {
+  } else if (is_bf16) {
+    launch<__nv_bfloat16, 1>(blocks, c, p, s, st, lv, meta, geom, out,
+                             n_rois);
+  } else if (vec == 8) {
     launch<float, 8>(blocks, c, p, s, st, lv, meta, geom, out, n_rois);
-  } else {
+  } else if (vec == 2) {
     launch<float, 2>(blocks, c, p, s, st, lv, meta, geom, out, n_rois);
+  } else {
+    launch<float, 1>(blocks, c, p, s, st, lv, meta, geom, out, n_rois);
   }
   return static_cast<int>(cudaGetLastError());
 }

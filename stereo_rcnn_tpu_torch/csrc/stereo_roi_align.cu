@@ -85,7 +85,8 @@
 // - each lane owns kVec = 8 neighbouring channels (vec.cuh): one 16-byte
 //   load per bf16 tap, two float4 loads per float32 tap; a C that is not a
 //   multiple of 8 (or a level that is not 16-byte aligned) takes 2-channel
-//   lanes, the same kernel with kVec = 2, chosen by the C entry;
+//   lanes, the same kernel with kVec = 2, and an odd C 1-channel lanes
+//   (kVec = 1), chosen by the C entry;
 // - the block's ~256 threads are (C / kVec) lanes x groups; group g takes
 //   the 7x7 bins g, g + groups, ...: a bin's 2x2 left samples, their mean
 //   and the right bin's pool;
@@ -520,9 +521,10 @@ void launch(int mode, int blocks, cudaStream_t s, const Pyramids& pyr,
 // (h0, w0, h1, w1, ...); meta_*: int32 [B, R, 4] (level, y0, x0, valid) and
 // geom_*: float32 [B, R, 4] (y1, x1, bin_h, bin_w) on the device; out:
 // float32 [B, R, 294, C]; mode: 0 f32, 1 kron_bf16, 2 kron_hilo, 3 bf16,
-// 4 hilo.  C must be even: 8-channel lanes where C is a multiple of 8 and
-// every level and the output are 16-byte aligned, else 2-channel lanes.
-// Returns cudaGetLastError().
+// 4 hilo.  Any C: 8-channel lanes where C is a multiple of 8 and every
+// level and the output are 16-byte aligned, else 2-channel lanes for an
+// even C, else 1-channel lanes (vec.cuh lane_width).  Returns
+// cudaGetLastError().
 extern "C" int stereo_roi_align_fwd(const void* const* feats_l,
                                     const void* const* feats_r,
                                     const int* level_hw, const int* win_hw,
@@ -530,9 +532,8 @@ extern "C" int stereo_roi_align_fwd(const void* const* feats_l,
                                     const int* meta_r, const float* geom_r,
                                     float* out, int batch, int n_rois, int c,
                                     int is_bf16, int mode, void* stream) {
-  if (c % 2) return static_cast<int>(cudaErrorInvalidValue);
   Pyramids pyr;
-  bool wide = c % 8 == 0 && aligned16(out);
+  bool wide = aligned16(out);
   for (int l = 0; l < kLevels; ++l) {
     pyr.left[l] = feats_l[l];
     pyr.right[l] = feats_r[l];
@@ -545,17 +546,24 @@ extern "C" int stereo_roi_align_fwd(const void* const* feats_l,
   const int blocks = batch * n_rois;
   if (blocks == 0 || c == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && wide) {
+  const int vec = lane_width(c, wide);
+  if (is_bf16 && vec == 8) {
     launch<__nv_bfloat16, 8>(mode, blocks, s, pyr, meta_l, geom_l, meta_r,
                              geom_r, out, n_rois, c);
-  } else if (is_bf16) {
+  } else if (is_bf16 && vec == 2) {
     launch<__nv_bfloat16, 2>(mode, blocks, s, pyr, meta_l, geom_l, meta_r,
                              geom_r, out, n_rois, c);
-  } else if (wide) {
+  } else if (is_bf16) {
+    launch<__nv_bfloat16, 1>(mode, blocks, s, pyr, meta_l, geom_l, meta_r,
+                             geom_r, out, n_rois, c);
+  } else if (vec == 8) {
     launch<float, 8>(mode, blocks, s, pyr, meta_l, geom_l, meta_r, geom_r,
                      out, n_rois, c);
-  } else {
+  } else if (vec == 2) {
     launch<float, 2>(mode, blocks, s, pyr, meta_l, geom_l, meta_r, geom_r,
+                     out, n_rois, c);
+  } else {
+    launch<float, 1>(mode, blocks, s, pyr, meta_l, geom_l, meta_r, geom_r,
                      out, n_rois, c);
   }
   return static_cast<int>(cudaGetLastError());

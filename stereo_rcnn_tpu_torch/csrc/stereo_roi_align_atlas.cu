@@ -40,6 +40,11 @@
 //   weights computed once per block in shared memory (as K1);
 // - each thread owns kVec = 8 neighbouring channels (vec.cuh, shared with
 //   K1 and K3): one 16-byte load of bf16 per tap, 16-byte float4 stores;
+//   a C that is not a multiple of 8 takes 2-channel lanes (an even C) or
+//   1-channel lanes (an odd C), the same kernel with another kVec, chosen
+//   by the C entry as in K1;
+// - the lanes loop over the channels: a C above 256 lanes x kVec (2048 at
+//   kVec = 8) takes a second pass of the block's lanes, so any C fits;
 // - the three outputs are stored with __stcs (cache-streaming), so they
 //   pass through L2 without evicting the pyramid the taps re-read;
 // - the block's threads are (C / kVec) x groups, about 256; group g takes
@@ -67,7 +72,6 @@ constexpr int kPk = 14;                      // samples per axis
 constexpr int kP = 7;                        // pooled bins per axis
 constexpr int kKpt = kPk * kPk;              // 196
 constexpr int kBlockThreads = 256;
-constexpr int kVec = 8;                      // channels per thread
 
 struct Taps {
   int lo[kPk];
@@ -85,7 +89,7 @@ struct BinTaps {
 };
 
 // y first, then x, as K1 and the TPU kernel's two hat contractions.
-template <typename T>
+template <int kVec, typename T>
 __device__ __forceinline__ Vec<kVec> sample(const T* img, int w, int c,
                                             int ch, const Taps& ty,
                                             const Taps& tx, int i, int j) {
@@ -108,7 +112,7 @@ __device__ __forceinline__ Vec<kVec> sample(const T* img, int w, int c,
   return s;
 }
 
-template <typename T>
+template <typename T, int kVec>
 __global__ void __launch_bounds__(kBlockThreads)
     stereo_roi_align_atlas_kernel(
         const T* __restrict__ atlas_l, const T* __restrict__ atlas_r,
@@ -186,72 +190,90 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
   __syncthreads();
 
-  const int ch = threadIdx.x * kVec;
-  if (ch >= c) return;                       // no barrier follows
   const size_t img_off = static_cast<size_t>(b) * atlas_h * atlas_w * c;
   const T* img_l = atlas_l + img_off;
   const T* img_r = atlas_r + img_off;
-  float* o14 = out14l + static_cast<size_t>(roi) * kKpt * c + ch;
-  float* o7l = out7l + static_cast<size_t>(roi) * kP * kP * c + ch;
-  float* o7r = out7r + static_cast<size_t>(roi) * kP * kP * c + ch;
   const bool valid_l = s_valid[0] != 0, valid_r = s_valid[1] != 0;
 
-  for (int bin = threadIdx.y; bin < kP * kP; bin += blockDim.y) {
-    const int py = bin / kP, px = bin % kP;
-    Vec<kVec> acc_l, acc_r;
+  for (int ch = threadIdx.x * kVec; ch < c; ch += blockDim.x * kVec) {
+    float* o14 = out14l + static_cast<size_t>(roi) * kKpt * c + ch;
+    float* o7l = out7l + static_cast<size_t>(roi) * kP * kP * c + ch;
+    float* o7r = out7r + static_cast<size_t>(roi) * kP * kP * c + ch;
+    for (int bin = threadIdx.y; bin < kP * kP; bin += blockDim.y) {
+      const int py = bin / kP, px = bin % kP;
+      Vec<kVec> acc_l = zero_vec<kVec>(), acc_r = zero_vec<kVec>();
+      for (int dy = 0; dy < 2; ++dy) {
+        for (int dx = 0; dx < 2; ++dx) {
+          const int i = 2 * py + dy, j = 2 * px + dx;
+          const Vec<kVec> s =
+              valid_l ? sample<kVec>(img_l, atlas_w, c, ch, taps[0], taps[1],
+                                     i, j)
+                      : zero_vec<kVec>();
+          store_vec(o14 + static_cast<size_t>(i * kPk + j) * c, s);
 #pragma unroll
-    for (int v = 0; v < kVec; ++v) acc_l.v[v] = acc_r.v[v] = 0.0f;
-    for (int dy = 0; dy < 2; ++dy) {
-      for (int dx = 0; dx < 2; ++dx) {
-        const int i = 2 * py + dy, j = 2 * px + dx;
-        Vec<kVec> s;
-        if (valid_l) {
-          s = sample(img_l, atlas_w, c, ch, taps[0], taps[1], i, j);
-        } else {
-#pragma unroll
-          for (int v = 0; v < kVec; ++v) s.v[v] = 0.0f;
+          for (int v = 0; v < kVec; ++v) acc_l.v[v] += s.v[v];
         }
-        store_vec(o14 + static_cast<size_t>(i * kPk + j) * c, s);
-#pragma unroll
-        for (int v = 0; v < kVec; ++v) acc_l.v[v] += s.v[v];
       }
-    }
 #pragma unroll
-    for (int v = 0; v < kVec; ++v) acc_l.v[v] *= 0.25f;
-    store_vec(o7l + static_cast<size_t>(bin) * c, acc_l);
-    if (valid_r) {
-      const float* wk = w_right[bin];
-      const int ny = bins[0].n[py], nx = bins[1].n[px];
-      for (int k = 0; k < ny; ++k) {
-        const T* row =
-            img_r + static_cast<size_t>(bins[0].cell[py][k]) * atlas_w * c +
-            ch;
-        for (int l = 0; l < nx; ++l) {
-          const Vec<kVec> x = load_vec<kVec>(
-              row + static_cast<size_t>(bins[1].cell[px][l]) * c);
-          const float wt = wk[k * 4 + l];
+      for (int v = 0; v < kVec; ++v) acc_l.v[v] *= 0.25f;
+      store_vec(o7l + static_cast<size_t>(bin) * c, acc_l);
+      if (valid_r) {
+        const float* wk = w_right[bin];
+        const int ny = bins[0].n[py], nx = bins[1].n[px];
+        for (int k = 0; k < ny; ++k) {
+          const T* row = img_r +
+                         static_cast<size_t>(bins[0].cell[py][k]) * atlas_w *
+                             c +
+                         ch;
+          for (int l = 0; l < nx; ++l) {
+            const Vec<kVec> x = load_vec<kVec>(
+                row + static_cast<size_t>(bins[1].cell[px][l]) * c);
+            const float wt = wk[k * 4 + l];
 #pragma unroll
-          for (int v = 0; v < kVec; ++v) {
-            acc_r.v[v] = __fmaf_rn(wt, x.v[v], acc_r.v[v]);
+            for (int v = 0; v < kVec; ++v) {
+              acc_r.v[v] = __fmaf_rn(wt, x.v[v], acc_r.v[v]);
+            }
           }
         }
       }
+      store_vec(o7r + static_cast<size_t>(bin) * c, acc_r);
     }
-    store_vec(o7r + static_cast<size_t>(bin) * c, acc_r);
   }
 }
 
-template <typename T>
+template <typename T, int kVec>
 int launch(int blocks, int c, cudaStream_t s, const void* atlas_l,
            const void* atlas_r, int atlas_h, int atlas_w, const int* meta_l,
            const float* geom_l, const int* meta_r, const float* geom_r,
            float* out14l, float* out7l, float* out7r, int n_rois) {
   const dim3 threads = lane_groups(c, kVec, kBlockThreads, kP * kP);
-  stereo_roi_align_atlas_kernel<T><<<blocks, threads, 0, s>>>(
+  stereo_roi_align_atlas_kernel<T, kVec><<<blocks, threads, 0, s>>>(
       static_cast<const T*>(atlas_l), static_cast<const T*>(atlas_r),
       atlas_h, atlas_w, meta_l, geom_l, meta_r, geom_r, out14l, out7l, out7r,
       n_rois, c);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The lane width chosen at run time.
+template <typename T>
+int launch_any(int vec, int blocks, int c, cudaStream_t s,
+               const void* atlas_l, const void* atlas_r, int atlas_h,
+               int atlas_w, const int* meta_l, const float* geom_l,
+               const int* meta_r, const float* geom_r, float* out14l,
+               float* out7l, float* out7r, int n_rois) {
+  if (vec == 8) {
+    return launch<T, 8>(blocks, c, s, atlas_l, atlas_r, atlas_h, atlas_w,
+                        meta_l, geom_l, meta_r, geom_r, out14l, out7l, out7r,
+                        n_rois);
+  }
+  if (vec == 2) {
+    return launch<T, 2>(blocks, c, s, atlas_l, atlas_r, atlas_h, atlas_w,
+                        meta_l, geom_l, meta_r, geom_r, out14l, out7l, out7r,
+                        n_rois);
+  }
+  return launch<T, 1>(blocks, c, s, atlas_l, atlas_r, atlas_h, atlas_w,
+                      meta_l, geom_l, meta_r, geom_r, out14l, out7l, out7r,
+                      n_rois);
 }
 
 }  // namespace
@@ -260,7 +282,7 @@ int launch(int blocks, int c, cudaStream_t s, const void* atlas_l,
 // packed atlases [B, atlas_h, atlas_w, C]; meta_*: int32 [B, R, 4]
 // (y0_atlas, x0, valid, 0) and geom_*: float32 [B, R, 6] (y1, x1, bin_h,
 // bin_w, clamp_y, clamp_x) on the device; out14l: float32 [B, R, 14, 14, C],
-// out7l / out7r: float32 [B, R, 7, 7, C]; C a multiple of 8, at most 2048.
+// out7l / out7r: float32 [B, R, 7, 7, C]; any C (vec.cuh lane_width).
 // Returns a CUDA error code (0 on success).
 extern "C" int stereo_roi_align_atlas_fwd(
     const void* atlas_l, const void* atlas_r, const int* meta_l,
@@ -269,16 +291,18 @@ extern "C" int stereo_roi_align_atlas_fwd(
     int atlas_h, int atlas_w, int c, int is_bf16, void* stream) {
   const int blocks = batch * n_rois;
   if (blocks == 0 || c == 0) return static_cast<int>(cudaSuccess);
-  if (c % kVec || c / kVec > kBlockThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool wide = aligned16(atlas_l) && aligned16(atlas_r) &&
+                    aligned16(out14l) && aligned16(out7l) &&
+                    aligned16(out7r);
+  const int vec = lane_width(c, wide);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return launch<__nv_bfloat16>(blocks, c, s, atlas_l, atlas_r, atlas_h,
-                                 atlas_w, meta_l, geom_l, meta_r, geom_r,
-                                 out14l, out7l, out7r, n_rois);
+    return launch_any<__nv_bfloat16>(vec, blocks, c, s, atlas_l, atlas_r,
+                                      atlas_h, atlas_w, meta_l, geom_l,
+                                      meta_r, geom_r, out14l, out7l, out7r,
+                                      n_rois);
   }
-  return launch<float>(blocks, c, s, atlas_l, atlas_r, atlas_h, atlas_w,
-                       meta_l, geom_l, meta_r, geom_r, out14l, out7l, out7r,
-                       n_rois);
+  return launch_any<float>(vec, blocks, c, s, atlas_l, atlas_r, atlas_h,
+                           atlas_w, meta_l, geom_l, meta_r, geom_r, out14l,
+                           out7l, out7r, n_rois);
 }

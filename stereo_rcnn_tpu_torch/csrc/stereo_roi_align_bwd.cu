@@ -41,11 +41,12 @@
 //   in registers.  Where C % 4 == 0, kVec = 8: two quads, quad q at
 //   channel 128 q + 4 l, so that each warp-wide load or store of a quad
 //   covers 512 contiguous bytes.  Any other even C takes kVec = 2: one
-//   pair at channel 2 l, 8-byte accesses.  The width is a template
+//   pair at channel 2 l, 8-byte accesses; an odd C kVec = 1: one channel
+//   at channel l, 4-byte accesses.  The width is a template
 //   parameter of the same kernel, chosen by the C entry (as K1's in
 //   stereo_roi_align.cu); it changes how many channels a lane carries,
-//   never the order in which a channel's terms are summed, so both widths
-//   give the same bits for the same channel.
+//   never the order in which a channel's terms are summed, so every width
+//   gives the same bits for the same channel.
 // - The warp lists the strip's hits once, in ascending roi order (4 x 32
 //   rois' loads in flight, a ballot per 32): the rois of its level, valid,
 //   whose tap rectangle meets the strip, with their window origin and
@@ -120,11 +121,13 @@ struct Grads {
 };
 
 // A lane's channels: kVec = 8 as two quads (4 channels, one 16-byte
-// access each), kVec = 2 as one pair (one 8-byte access).
+// access each), kVec = 2 as one pair (one 8-byte access), kVec = 1 as one
+// channel (one 4-byte access).
 template <int kVec>
 struct Lane {
-  static_assert(kVec == 2 || kVec == 8, "a pair or two quads");
-  static constexpr int kElem = kVec == 2 ? 2 : 4;  // channels per access
+  static_assert(kVec == 1 || kVec == 2 || kVec == 8,
+                "one channel, a pair or two quads");
+  static constexpr int kElem = kVec == 8 ? 4 : kVec;  // channels per access
   static constexpr int kQ = kVec / kElem;          // accesses per lane
   static constexpr int kChunk = 32 * kVec;         // channels per warp
   // A unit takes at most kMaxCols sample columns, so that its vectors
@@ -134,7 +137,7 @@ struct Lane {
   static_assert(kMaxCols >= 2, "ring too small");
   // The lane's access q of a row of channels: for quads 128 q + 4 lane
   // (each warp-wide access covers 512 contiguous bytes), for a pair
-  // 2 lane.
+  // 2 lane, for one channel lane.
   static __device__ __forceinline__ int at(int q, int lane) {
     return 32 * kElem * q + kElem * lane;
   }
@@ -157,10 +160,12 @@ __device__ __forceinline__ Vec<kVec> load_lane(const float* row, int lane) {
       r.v[4 * q + 1] = t.y;
       r.v[4 * q + 2] = t.z;
       r.v[4 * q + 3] = t.w;
-    } else {
+    } else if constexpr (L::kElem == 2) {
       const float2 t = *reinterpret_cast<const float2*>(row + L::at(q, lane));
       r.v[2 * q] = t.x;
       r.v[2 * q + 1] = t.y;
+    } else {
+      r.v[q] = row[L::at(q, lane)];
     }
   }
   return r;
@@ -490,9 +495,11 @@ __global__ void __launch_bounds__(32)
         __stcs(reinterpret_cast<float4*>(cell),
                make_float4(acc[k][4 * q], acc[k][4 * q + 1],
                            acc[k][4 * q + 2], acc[k][4 * q + 3]));
-      } else {
+      } else if constexpr (kElem == 2) {
         __stcs(reinterpret_cast<float2*>(cell),
                make_float2(acc[k][2 * q], acc[k][2 * q + 1]));
+      } else {
+        __stcs(cell, acc[k][q]);
       }
     }
   }
@@ -523,8 +530,10 @@ cudaError_t launch(const Grads& grads, const int* meta_l, const float* geom_l,
 // pointers to float32 NHWC level gradients [B, h, w, C], written in full;
 // level_hw / win_hw: host arrays (h0, w0, h1, w1, ...); meta_*: int32
 // [B, R, 4] (level, y0, x0, valid) and geom_*: float32 [B, R, 4] (y1, x1,
-// bin_h, bin_w) on the device; g: float32 [B, R, 294, C], C even, 16-byte
-// aligned.  Returns a CUDA error code (0 on success).
+// bin_h, bin_w) on the device; g: float32 [B, R, 294, C], 16-byte
+// aligned; any C (8-channel lanes where C % 4 == 0, 2-channel lanes for
+// any other even C, else 1-channel lanes).  Returns a CUDA error code (0
+// on success).
 extern "C" int stereo_roi_align_bwd(float* const* grad_l,
                                     float* const* grad_r,
                                     const int* level_hw, const int* win_hw,
@@ -542,7 +551,6 @@ extern "C" int stereo_roi_align_bwd(float* const* grad_l,
     grads.win_w[l] = win_hw[2 * l + 1];
   }
   if (batch == 0 || c == 0) return static_cast<int>(cudaSuccess);
-  if (c % 2) return static_cast<int>(cudaErrorInvalidValue);
   int n_tiles = 0;
   for (int l = kLevels - 1; l >= 0; --l) {
     grads.tiles_x[l] = (grads.w[l] + kTileW - 1) / kTileW;
@@ -552,8 +560,10 @@ extern "C" int stereo_roi_align_bwd(float* const* grad_l,
   if (n_tiles == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      c % 4 == 0 ? launch<8>(grads, meta_l, geom_l, meta_r, geom_r, g, batch,
-                             n_rois, c, n_tiles, s)
-                 : launch<2>(grads, meta_l, geom_l, meta_r, geom_r, g, batch,
-                             n_rois, c, n_tiles, s));
+      c % 4 == 0   ? launch<8>(grads, meta_l, geom_l, meta_r, geom_r, g,
+                               batch, n_rois, c, n_tiles, s)
+      : c % 2 == 0 ? launch<2>(grads, meta_l, geom_l, meta_r, geom_r, g,
+                               batch, n_rois, c, n_tiles, s)
+                   : launch<1>(grads, meta_l, geom_l, meta_r, geom_r, g,
+                               batch, n_rois, c, n_tiles, s));
 }

@@ -4,7 +4,8 @@
 // A lane owns N neighbouring channels of an NHWC row.  A tap loads them in
 // one access where it can: N = 8 bf16 channels are one 16-byte load, N = 2
 // one 4-byte load; float32 channels are N / 4 float4 loads (N = 2: one
-// float2).  Every load goes through the read-only path (__ldg).  Outputs
+// float2).  N = 1 (an odd channel count, whose rows start at any element)
+// loads and stores one channel.  Every load goes through the read-only path (__ldg).  Outputs
 // are float32, stored with __stcs (cache-streaming): a kernel writes each
 // output row once, so the stores pass through L2 without evicting the
 // feature levels that the taps read again and again.  A bf16 value
@@ -21,7 +22,8 @@ namespace {
 
 template <int N>
 struct Vec {
-  static_assert(N == 2 || N % 4 == 0, "2 channels or a multiple of 4");
+  static_assert(N == 1 || N == 2 || N % 4 == 0,
+                "1 or 2 channels or a multiple of 4");
   float v[N];
 };
 
@@ -42,9 +44,14 @@ __device__ __forceinline__ void unpack2(uint32_t bits, float* v) {
 
 template <int N>
 __device__ __forceinline__ Vec<N> load_vec(const __nv_bfloat16* p) {
-  static_assert(N == 2 || N == 8, "one 4-byte or one 16-byte load");
+  static_assert(N == 1 || N == 2 || N == 8,
+                "one 2-byte, 4-byte or 16-byte load");
   Vec<N> r;
-  if constexpr (N == 8) {
+  if constexpr (N == 1) {
+    const unsigned short u =
+        __ldg(reinterpret_cast<const unsigned short*>(p));
+    r.v[0] = __uint_as_float(static_cast<uint32_t>(u) << 16);
+  } else if constexpr (N == 8) {
     const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
     unpack2(u.x, r.v);
     unpack2(u.y, r.v + 2);
@@ -59,7 +66,9 @@ __device__ __forceinline__ Vec<N> load_vec(const __nv_bfloat16* p) {
 template <int N>
 __device__ __forceinline__ Vec<N> load_vec(const float* p) {
   Vec<N> r;
-  if constexpr (N == 2) {
+  if constexpr (N == 1) {
+    r.v[0] = __ldg(p);
+  } else if constexpr (N == 2) {
     const float2 f = __ldg(reinterpret_cast<const float2*>(p));
     r.v[0] = f.x;
     r.v[1] = f.y;
@@ -78,7 +87,9 @@ __device__ __forceinline__ Vec<N> load_vec(const float* p) {
 
 template <int N>
 __device__ __forceinline__ void store_vec(float* p, const Vec<N>& r) {
-  if constexpr (N == 2) {
+  if constexpr (N == 1) {
+    __stcs(p, r.v[0]);
+  } else if constexpr (N == 2) {
     __stcs(reinterpret_cast<float2*>(p), make_float2(r.v[0], r.v[1]));
   } else {
 #pragma unroll
@@ -108,6 +119,14 @@ inline dim3 lane_groups(int c, int vec, int threads, int units) {
 // are 16-byte aligned.
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// The lane width of a kernel for C channels: 8 where C is a multiple of 8
+// and every base pointer is 16-byte aligned (`wide`), else 2 for an even
+// C, else 1.  A width changes how many channels a thread handles, never
+// what a channel computes, so every width gives the same bits.
+inline int lane_width(int c, bool wide) {
+  return c % 8 == 0 && wide ? 8 : c % 2 == 0 ? 2 : 1;
 }
 
 }  // namespace

@@ -69,11 +69,17 @@ def load_image(path: str) -> np.ndarray:
 
 class KittiPipeline:
     """Iterates :class:`PipelineBatch` es over one epoch of a
-    :class:`KittiDataset`."""
+    :class:`KittiDataset`.
+
+    ``batch_size`` is the global batch; ``rows`` (a slice of it, a
+    data-parallel rank's share, ``parallel.batch_sharding``) makes the
+    pipeline load and yield only those rows of each global batch, in the
+    global epoch order (every rank shuffles alike from ``seed``)."""
 
     def __init__(self, cfg: Config, dataset: KittiDataset, batch_size: int,
                  shuffle: bool = True, seed: int = 0,
-                 image_ext: str = ".png", prefetch: int = 2):
+                 image_ext: str = ".png", prefetch: int = 2,
+                 rows: slice | None = None):
         self.cfg = cfg
         self.ds = dataset
         self.batch_size = batch_size
@@ -81,6 +87,7 @@ class KittiPipeline:
         self.rng = np.random.RandomState(seed)
         self.image_ext = image_ext
         self.prefetch = prefetch
+        self.rows = slice(0, batch_size) if rows is None else rows
 
     def _load_example(self, idx: int):
         cfg = self.cfg
@@ -148,10 +155,15 @@ class KittiPipeline:
                     pass
             return False
 
+        first, last = self.rows.start, self.rows.stop
+
         def worker():
             try:
                 for b, n in zip(batches, counts):
-                    if not put(self._make_batch(b, n)):
+                    # This share's real frames: the pad replicas sit at
+                    # the end of the global batch.
+                    n_rows = min(max(n - first, 0), last - first)
+                    if not put(self._make_batch(b[first:last], n_rows)):
                         return
                 put(done)
             except Exception as e:  # noqa: BLE001 — raised by the consumer

@@ -56,14 +56,6 @@ class StereoRCNN(nn.Module):
                 rc.kpt_pool_size != 2 * rc.pooling_size):
             raise ValueError("the fused RoIAlign needs kpt_pool_size == "
                              "2 * pooling_size")
-        if rc.roi_align_impl == "pallas" and cfg.backbone.fpn_dim % 2:
-            # The card's kernels (K1, K2) take any even channel count; the
-            # Pallas kernels take any.  Refused here, on every device, so
-            # that no run gets as far as a first launch.
-            raise ValueError(
-                f"backbone.fpn_dim={cfg.backbone.fpn_dim}: the fused stereo "
-                "RoIAlign (rcnn.roi_align_impl='pallas') needs an even "
-                "fpn_dim")
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         d = cfg.backbone.fpn_dim

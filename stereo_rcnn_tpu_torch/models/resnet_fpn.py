@@ -206,16 +206,60 @@ class ResNetFPN(nn.Module):
                      .permute(0, 2, 3, 1) for p in (p2, p3, p4, p5, p6))
 
 
+def _interp_matrix(n_in: int, n_out: int, dtype, device) -> torch.Tensor:
+    """``[n_out, n_in]`` weights of one axis of ``F.interpolate(mode=
+    "bilinear", align_corners=False)``: output ``o`` samples ``max(0,
+    (o + 0.5) * n_in / n_out - 0.5)`` between its two cells, as ATen's
+    upsampling kernel computes it."""
+    src = ((torch.arange(n_out, device=device, dtype=dtype) + 0.5)
+           * (n_in / n_out) - 0.5).clamp_min(0.0)
+    i0 = src.long()
+    i1 = torch.where(i0 < n_in - 1, i0 + 1, i0)
+    l1 = (src - i0)[:, None]
+    cells = torch.arange(n_in, device=device)
+    # Elementwise, no scatter: at the last cell both taps are i0.
+    return ((cells == i0[:, None]) * (1.0 - l1) +
+            (cells == i1[:, None]) * l1)
+
+
+class _UpsampleBilinear(torch.autograd.Function):
+    """``F.interpolate(top, size, mode="bilinear", align_corners=False)``
+    whose backward is deterministic: ATen's CUDA backward adds each output
+    cell's gradient into its four source cells with float atomics, in an
+    order that changes from run to run (the training step's gradients then
+    differ in their last bits between two runs from one state).  The
+    backward here is the transposed interpolation as two matrix products
+    in float32 (float64 for float64), ``A_h^T @ g @ A_w``
+    (:func:`_interp_matrix`), summed in a fixed order; the forward is
+    ATen's, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, top, size):
+        ctx.in_size = top.shape[2:]
+        return F.interpolate(top, size=size, mode="bilinear",
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (h, w), (oh, ow) = ctx.in_size, g.shape[2:]
+        dt = torch.promote_types(g.dtype, torch.float32)
+        a_h = _interp_matrix(h, oh, dt, g.device)
+        a_w = _interp_matrix(w, ow, dt, g.device)
+        d = torch.matmul(a_h.t(), torch.matmul(g.to(dt), a_w))
+        return d.to(g.dtype).contiguous(memory_format=torch.channels_last), \
+            None
+
+
 def _upsample_add(top: torch.Tensor, lateral: torch.Tensor,
                   mode: str) -> torch.Tensor:
     """Upsample ``top`` to the lateral's size and add the lateral.
-    "bilinear": half-pixel centres (resnet.py ``_upsample_add``);
-    "nearest": every cell repeated 2x on both axes, cropped to the
-    lateral's size (the JAX package's cheaper option)."""
+    "bilinear": half-pixel centres (resnet.py ``_upsample_add``), with a
+    deterministic backward (:class:`_UpsampleBilinear`); "nearest": every
+    cell repeated 2x on both axes, cropped to the lateral's size (the JAX
+    package's cheaper option)."""
     h, w = lateral.shape[2:]
     if mode == "bilinear":
-        up = F.interpolate(top, size=(h, w), mode="bilinear",
-                           align_corners=False)
+        up = _UpsampleBilinear.apply(top, (h, w))
     else:
         up = top.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
         up = up[:, :, :h, :w]

@@ -6,13 +6,15 @@ a hash of the source, the ``csrc`` headers it includes and the flags
 (:func:`library_path`), so an edited source or header is rebuilt and an
 unchanged one is loaded as it is.  Nothing here falls back: a missing
 ``nvcc`` or a failed build raises.  :class:`CudaKernel` binds one C entry
-of a source; :func:`on_device` picks a kernel or its plain version by the
-tensors' device; :func:`check_levels` checks the feature levels a kernel
+of a source; :func:`load_kernels` builds several at once;
+:func:`on_device` picks a kernel or its plain version by the tensors'
+device; :func:`check_levels` checks the feature levels a kernel
 reads.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -133,6 +135,14 @@ class CudaKernel:
         self.launches += 1
 
 
+def load_kernels(kernels) -> None:
+    """Build (where needed) and load ``kernels`` (:class:`CudaKernel` s)
+    together: one ``nvcc`` per source, all started at once."""
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        for fut in [pool.submit(k.load) for k in kernels]:
+            fut.result()
+
+
 def on_device(dev, name: str, cuda_fn, cpu_fn):
     """CUDA tensors take the kernel, CPU tensors the plain version; any
     other device raises."""
@@ -146,13 +156,11 @@ def on_device(dev, name: str, cuda_fn, cpu_fn):
 def check_levels(feats, dev, b: int):
     """``(dtype, C)`` of one side's levels as the kernels read them:
     contiguous NHWC ``[b, H_l, W_l, C]`` on ``dev``, all bfloat16 or all
-    float32, C even."""
+    float32; any C."""
     dtype = feats[0].dtype
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"features must be bfloat16 or float32, got {dtype}")
     c = feats[0].shape[-1]
-    if c % 2:
-        raise ValueError(f"channel count must be even, got {c}")
     for f in feats:
         if f.device != dev or f.dtype != dtype:
             raise ValueError("all levels must share the rois' device and one "

@@ -584,10 +584,10 @@ class StereoRoIAlignBwdKernel(CudaKernel):
 
     def __call__(self, g_packed, rois_l, rois_r, level_shapes, strides):
         """float32 ``(d_feats_l, d_feats_r)`` lists of ``[B, H_l, W_l, C]``
-        for the packed cotangent ``g_packed`` [B, R, 294, C] float32, C
-        even (8-channel lanes where C % 4 == 0, else 2-channel lanes).  The
-        kernel writes every gradient cell once, so they are allocated
-        uninitialised."""
+        for the packed cotangent ``g_packed`` [B, R, 294, C] float32, any C
+        (8-channel lanes where C % 4 == 0, 2-channel lanes for any other
+        even C, else 1-channel lanes).  The kernel writes every gradient
+        cell once, so they are allocated uninitialised."""
         fn = self.load()
         level_shapes = [tuple(hw) for hw in level_shapes]
         if len(level_shapes) != 4:
@@ -601,8 +601,6 @@ class StereoRoIAlignBwdKernel(CudaKernel):
             raise ValueError(f"cotangent must be contiguous float32 "
                              f"[{b}, {r}, {ROWS}, C], got {g_packed.dtype} "
                              f"{tuple(g_packed.shape)}")
-        if c % 2:
-            raise ValueError(f"channel count must be even, got {c}")
         _check_rois(rois_l, rois_r, b, r)
         if rois_l.device != dev:
             raise ValueError("rois and cotangent must share a device")
@@ -660,9 +658,6 @@ class StereoRoIAlignAtlasKernel(CudaKernel):
             if a.device != dev or not a.is_contiguous():
                 raise ValueError("atlases must be contiguous, on the rois' "
                                  "device")
-        if c % 8 or c > 2048:
-            raise ValueError(f"channel count must be a multiple of 8, at "
-                             f"most 2048, got {c}")
         _check_rois(rois_l, rois_r, b, r)
         meta, geom = atlas_meta(level_shapes, torch.stack([rois_l, rois_r]),
                                 strides)

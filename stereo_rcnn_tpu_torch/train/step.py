@@ -15,13 +15,15 @@ no epsilon; then per :func:`param_label` partition: "frozen" unchanged,
 ``p -= lr(count) * m``, and the step schedule decays the rate by gamma once
 ``count >= lr_decay_step * steps_per_epoch``.  Parameters and momentum are
 updated in place.  The step's three parts are ``torch.profiler`` ranges
-(``train/losses``, ``train/backward``, ``train/optimizer``).
+(``train/losses``, ``train/backward``, ``train/optimizer``); a
+data-parallel step (``parallel.data_parallel_train_step``) adds
+``train/all_reduce`` between the last two.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -176,11 +178,17 @@ def init_train_state(cfg: Config, generator: torch.Generator | None = None,
 
 def compute_losses(model: StereoRCNN, batch: Batch, cfg: Config,
                    generator: torch.Generator | None = None,
-                   uniforms: Uniforms | None = None
+                   uniforms: Uniforms | None = None,
+                   rows: Tuple[int, int] | None = None
                    ) -> Dict[str, torch.Tensor]:
     """All 6 losses averaged over the batch, and the mean foreground
     counts.  Target sampling draws from ``generator`` unless ``uniforms``
-    gives the draws."""
+    gives the draws.  ``rows = (start, total)``: the batch is rows
+    ``start ..`` of a global batch of ``total`` images, and the draws (the
+    generator's or ``uniforms``) are the global batch's, of which it takes
+    its rows: a rank of a data-parallel step samples as one process at the
+    global batch does (``jax.random.split(rng, 2 * b)`` over the global
+    ``b`` in the JAX package)."""
     b, im_h, im_w, _ = batch.images_left.shape
     dev = batch.images_left.device
     gt = batch.gt
@@ -192,10 +200,13 @@ def compute_losses(model: StereoRCNN, batch: Batch, cfg: Config,
     logits, deltas = model.rpn(feats_l, feats_r)
 
     anchors = generate_anchors(cfg.anchors, im_h, im_w, cfg.box_off, dev)
+    start, total = (0, b) if rows is None else rows
     if uniforms is None:
         uniforms = draw_uniforms(
-            generator, b, anchors.shape[0],
+            generator, total, anchors.shape[0],
             cfg.rpn.train_post_nms_top_n + gt.left.shape[1], dev)
+    if total != b:
+        uniforms = Uniforms(*[u[start:start + b] for u in uniforms])
     at = anchor_targets(anchors, gt, cfg.rpn, im_h, im_w, uniforms.anchor_fg,
                         uniforms.anchor_bg, cfg.box_off)
     rpn_l = rpn_losses(logits, deltas, at)
@@ -247,28 +258,38 @@ def step_generator(seed: int, step: int,
 
 def make_train_step(cfg: Config, steps_per_epoch: int = 1000,
                     device: torch.device | str | None = None):
-    """``step_fn(state, batch, generator=None, uniforms=None) -> metrics``:
-    one step on ``state`` in place (its parameters, traces and step
-    count), with the state and batch on ``device`` (default: the CUDA
-    card).  ``generator`` (on that device) draws the target sampling's
-    uniforms unless ``uniforms`` gives them.  Metrics are 0-dim tensors
-    with the JAX package's keys."""
+    """``step_fn(state, batch, generator=None, uniforms=None, rows=None,
+    reduce_grads=None) -> metrics``: one step on ``state`` in place (its
+    parameters, traces and step count), with the state and batch on
+    ``device`` (default: the CUDA card).  ``generator`` (on that device)
+    draws the target sampling's uniforms unless ``uniforms`` gives them;
+    ``rows`` places the batch in a global one (:func:`compute_losses`).
+    ``reduce_grads(params)``, if given, runs between the backward and the
+    optimizer (``parallel.data_parallel_train_step`` averages the
+    gradients over the ranks there).  Metrics are 0-dim tensors with the
+    JAX package's keys."""
     device = resolve_device(device)
     update, schedule = make_optimizer(cfg, steps_per_epoch)
 
     def step_fn(state: TrainState, batch: Batch,
                 generator: torch.Generator | None = None,
-                uniforms: Uniforms | None = None) -> Dict[str, torch.Tensor]:
+                uniforms: Uniforms | None = None,
+                rows: Tuple[int, int] | None = None,
+                reduce_grads: Callable | None = None
+                ) -> Dict[str, torch.Tensor]:
         batch = _place(state, batch, device)
         params = trainable_params(state)
         for p in params.values():
             p.grad = None
         with record_function("train/losses"):
             losses = compute_losses(state.model, batch, cfg, generator,
-                                    uniforms)
+                                    uniforms, rows)
             total = combine_with_uncertainty(losses, state.uncert)
         with record_function("train/backward"):
             total.backward()
+        if reduce_grads is not None:
+            with record_function("train/all_reduce"):
+                reduce_grads(params)
         with record_function("train/optimizer"):
             g_norm = update(params, state.trace, state.step)
         metrics = {**{k: v.detach() for k, v in losses.items()},

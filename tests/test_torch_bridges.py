@@ -221,14 +221,54 @@ def test_unported_options_raise(section, field, value):
 
 
 def test_odd_fpn_dim_refused_with_the_fused_roi_align():
-    """An odd ``fpn_dim`` with the fused RoIAlign is refused when the
-    model is built, naming ``fpn_dim`` (the card's kernels take even
-    channel counts); the gather takes it."""
-    cfg = _frozen_pallas_cfg("backbone", "fpn_dim", 33)
-    with pytest.raises(ValueError, match="fpn_dim"):
-        StereoRCNN(cfg)
-    StereoRCNN(dataclasses.replace(cfg, rcnn=dataclasses.replace(
-        cfg.rcnn, roi_align_impl="xla")))
+    """An odd ``fpn_dim`` with the fused RoIAlign is no longer refused: the
+    card's kernels take every channel count, as the Pallas kernels do.  At
+    ``fpn_dim=33`` the port's whole CPU forward (K1's plain version) agrees
+    with the JAX one (its Pallas K1 in interpret mode) on the same weights,
+    to ``tests/test_torch_pipeline.py``'s tolerances: equal proposal
+    validity, boxes within 1e-3 px, RoIAlign rows and head outputs within
+    1e-4 of their largest magnitude.  The output layers are scaled as
+    there, so that near-equal random scores do not reorder top-k and
+    NMS."""
+    from stereo_rcnn_tpu.models import detector as j_det
+    from stereo_rcnn_tpu_torch.models import detector as t_det
+    from stereo_rcnn_tpu_torch.models.heads import RCNNOutputs
+    cfg = dataclasses.replace(_frozen_pallas_cfg("backbone", "fpn_dim", 33),
+                              compute_dtype="float32")
+    cfg_j = j_config.Config(**{f.name: getattr(cfg, f.name)
+                               for f in dataclasses.fields(cfg)})
+    params = jax.tree.map(np.array, j_det.init_params(cfg_j,
+                                                      jax.random.PRNGKey(0)))
+    p = params["params"]
+    p["rcnn_head"]["cls_score"]["kernel"] *= 300.0
+    p["rpn_head"]["rpn_cls"]["kernel"] *= 300.0
+    p["rpn_head"]["rpn_box"]["kernel"] *= 0.01
+    p["rcnn_head"]["bbox_pred"]["kernel"] *= 0.1
+    il, ir, _, _ = synthetic_batch(cfg_j, batch=2, seed=7, n_objects=3)
+    jm = j_det.build_model(cfg_j)
+    raw = jax.jit(lambda q, l, r: jm.apply(
+        q, l, r, method=lambda m, a, b: j_det.forward_raw(m, a, b, False)))(
+        jax.tree.map(jax.numpy.asarray, params), il, ir)
+    model = StereoRCNN(cfg).eval()
+    model.load_state_dict(state_dict_from_jax(params, cfg), strict=True)
+    with torch.no_grad():
+        ours = t_det.forward_raw(model, torch.from_numpy(il),
+                                 torch.from_numpy(ir))
+
+    def close(a, b, name):
+        b = np.asarray(b)
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-4 * np.abs(b).max(), err_msg=name)
+    assert ours["kpt_feats"].shape[-1] == 33
+    assert ours["proposals"].valid.sum() > 10
+    np.testing.assert_array_equal(ours["proposals"].valid.numpy(),
+                                  np.asarray(raw["proposals"].valid))
+    np.testing.assert_allclose(ours["proposals"].left.numpy(),
+                               np.asarray(raw["proposals"].left), atol=1e-3)
+    close(ours["kpt_feats"], raw["kpt_feats"], "kpt_feats")
+    for name in RCNNOutputs._fields:
+        close(getattr(ours["rcnn"], name), getattr(raw["rcnn"], name), name)
 
 
 @pytest.mark.parametrize("field, value, expect", [

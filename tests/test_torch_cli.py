@@ -187,3 +187,90 @@ def test_supervisor_relaunches_and_completes(tmp_path, monkeypatch, capsys):
     assert "--resume" in out.splitlines()[0]
     assert "epoch 1/1 done, checkpoint saved" in out
     assert latest_step(ckpt) == 1
+
+
+def _torchrun(n, argv, cwd, timeout=300):
+    """``tools.train`` as ``torchrun --nproc-per-node n`` starts it: n
+    processes with ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE`` and the
+    rendezvous address set; their exit codes and outputs."""
+    from stereo_rcnn_tpu_torch.parallel.launch import free_port
+    port = str(free_port())
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=port, OMP_NUM_THREADS="2")
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "stereo_rcnn_tpu_torch.tools.train",
+             *argv], cwd=str(cwd), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return [p.returncode for p in procs], outs
+
+
+def test_two_ranks_train_as_one_process_then_resume(tmp_path, monkeypatch):
+    """``tools.train`` on two gloo ranks (as ``torchrun`` starts them) at
+    ``--batch-per-device 1`` takes the two synthetic steps one process
+    takes at ``--batch-per-device 2``: the same global batches and target
+    draws, the gradients averaged over the ranks.  The step-2 checkpoints
+    agree (float32, the tiny config with the fused RoIAlign and, to keep
+    its checkpoints small, fc 256): every parameter within 2e-5 of the one
+    process's plus 1e-4 of its largest magnitude (measured: 1.8e-8 at
+    most); the momentum, a sum of the two steps' raw gradients, within
+    1e-2 in norm (measured: 2.7e-3 at most, in layer2: the gradient of
+    the mean of per-rank means rounds apart from the batch mean's, and the
+    second step's gradient carries that rounding down a random-weight
+    trunk, as ``tests/test_torch_train.py`` finds).  Only rank 0 prints
+    and writes; ``--resume`` on two ranks continues to step 4."""
+    import json
+
+    import torch
+    from stereo_rcnn_tpu_torch.train.checkpoint import checkpoint_path
+    monkeypatch.chdir(tmp_path)
+    with open(tmp_path / "f32.json", "w") as f:
+        json.dump({"compute_dtype": "float32",
+                   "rcnn": {"roi_align_impl": "pallas", "fc_dim": 256}}, f)
+    common = ["--tiny", "--config", str(tmp_path / "f32.json"),
+              "--synthetic", "4", "--platform", "cpu", "--disp-interval", "1"]
+    one, two = str(tmp_path / "one"), str(tmp_path / "two")
+    assert train.main(common + ["--epochs", "1", "--batch-per-device", "2",
+                                "--ckpt-dir", one]) == 0
+    codes, outs = _torchrun(2, common + ["--epochs", "1",
+                                         "--batch-per-device", "1",
+                                         "--ckpt-dir", two], tmp_path)
+    assert codes == [0, 0], outs
+    assert "devices: 2, global batch: 2" in outs[0]
+    assert "rank 0 on cpu (host), gloo" in outs[0]
+    assert "[step 2]" in outs[0] and "[step" not in outs[1]
+    assert latest_step(two) == 2
+    with open(os.path.join(two, "metrics.csv")) as f:
+        assert len(f.read().splitlines()) == 3          # header + 2 steps
+    a = torch.load(checkpoint_path(one, 2), weights_only=True)
+    b = torch.load(checkpoint_path(two, 2), weights_only=True)
+    assert a["step"] == b["step"] == 2
+    pairs = [(a["uncert"], b["uncert"])]
+    pairs += [(a["model"][n], b["model"][n]) for n in a["model"]]
+    for x, y in pairs:
+        assert x.shape == y.shape
+        torch.testing.assert_close(y, x, rtol=0, atol=2e-5 + 1e-4 *
+                                   float(x.abs().max()))
+    assert set(a["trace"]) == set(b["trace"])
+    for n, x in a["trace"].items():
+        err = float((b["trace"][n] - x).norm())
+        assert err <= 1e-2 * float(x.norm()), (n, err, float(x.norm()))
+    assert not torch.equal(a["uncert"], torch.zeros_like(a["uncert"]))
+
+    codes, outs = _torchrun(2, common + ["--epochs", "2",
+                                         "--batch-per-device", "1",
+                                         "--ckpt-dir", two, "--resume"],
+                            tmp_path)
+    assert codes == [0, 0], outs
+    assert "resumed from step 2" in outs[0]
+    assert latest_step(two) == 4

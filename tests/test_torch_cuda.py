@@ -6,7 +6,10 @@ RoIAlign K3 and the atlas variant K4.  K1 and K3 are also checked at C = 36,
 which is not a multiple of 8 and so takes their 2-channel lanes (C = 256
 takes the 8-channel ones), and the two lane widths must give the same bits.
 K2 takes 8-channel lanes where C % 4 == 0 and 2-channel lanes at any other
-even C: it is checked at C = 34 too.
+even C: it is checked at C = 34 too.  Every kernel takes an odd C through
+1-channel lanes (checked at C = 35, K2 at C = 33), which give the bits of
+the wider lanes; K4 also takes a C beyond one pass of its 256 lanes x 8
+channels (C = 2056).
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  The file imports no JAX, so it runs on
 a machine without it:
@@ -42,12 +45,12 @@ def _k1_inputs(c, b=2, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [256, 36])
+@pytest.mark.parametrize("c", [256, 36, 35])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_cuda_kernel_matches_plain(dtype, c):
     """The CUDA kernel against its plain version on the card, at the main
-    path's channel width (8-channel lanes) and at C = 36 (2-channel
-    lanes).  1e-4: both read the same features; the two differ only in
+    path's channel width (8-channel lanes), at C = 36 (2-channel lanes)
+    and at C = 35 (1-channel lanes).  1e-4: both read the same features; the two differ only in
     fused multiply-adds."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -93,12 +96,12 @@ def test_registered_op_launches_k1(hat):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [256, 34])
+@pytest.mark.parametrize("c", [256, 34, 33])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_cuda_kernel_matches_plain_backward(dtype, c):
     """K2 against the plain backward on the card, and the autograd
-    Function's backward launching it, with 8-channel lanes (C = 256) and
-    2-channel lanes (C = 34).  1e-5 of each level's largest |gradient|:
+    Function's backward launching it, with 8-channel lanes (C = 256),
+    2-channel lanes (C = 34) and 1-channel lanes (C = 33).  1e-5 of each level's largest |gradient|:
     both sum the same float32 terms, K2 per gradient cell in roi, sample
     and tap order with each multiply fused into its add, the plain version
     tap by tap."""
@@ -140,7 +143,7 @@ def test_k2_cuda_kernel_matches_plain_backward(dtype, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [256, 36])
+@pytest.mark.parametrize("c", [256, 36, 35])
 @pytest.mark.parametrize("hat", ["kron_bf16", "kron_hilo"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_kron_modes_match_plain(hat, dtype, c):
@@ -179,7 +182,7 @@ def close_two_matmul(out, ref, feats):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [256, 36])
+@pytest.mark.parametrize("c", [256, 36, 35])
 @pytest.mark.parametrize("hat", ["bf16", "hilo"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_two_matmul_modes_match_plain(hat, dtype, c):
@@ -206,7 +209,7 @@ def test_k1_two_matmul_modes_match_plain(hat, dtype, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [256, 34])
+@pytest.mark.parametrize("c", [256, 34, 33])
 def test_k2_is_deterministic_and_owns_each_cell(c):
     """Two K2 launches give the same bits, also when all 128 rois of an
     image are one box (every sample of every roi adds into the same
@@ -243,7 +246,7 @@ def test_k2_is_deterministic_and_owns_each_cell(c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [256, 36])
+@pytest.mark.parametrize("c", [256, 36, 35])
 @pytest.mark.parametrize("p, s", [(7, 2), (14, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3_cuda_kernel_matches_plain(p, s, dtype, c):
@@ -303,10 +306,42 @@ def test_lane_width_keeps_the_bits(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_odd_c_lanes_keep_the_bits(dtype):
+    """K1 (every mode), K3 and K4 at C = 35 (1-channel lanes) give the
+    bits of the first 35 channels at C = 36 (2-channel lanes): a lane's
+    width never changes what a channel computes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from stereo_rcnn_tpu_torch.ops import roi_align_window as t_win
+    fl, fr, rl, rr = _k1_inputs(36)
+    dev = torch.device("cuda")
+    tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
+    tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
+    nl = [f[..., :35].contiguous() for f in tl]
+    nr = [f[..., :35].contiguous() for f in tr]
+    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
+    k1 = t_sra.stereo_roi_align_kernel
+    for hat in t_sra.TOOL_HAT_MODES:
+        assert torch.equal(k1(tl, tr, rl_t, rr_t, STRIDES, hat)[..., :35],
+                           k1(nl, nr, rl_t, rr_t, STRIDES, hat)), hat
+    for p, s in ((7, 2), (14, 1)):
+        assert torch.equal(
+            t_win.multilevel_roi_align_window(tl, rl_t, STRIDES, p,
+                                              s)[..., :35],
+            t_win.multilevel_roi_align_window(nl, rl_t, STRIDES, p, s))
+    wide = t_sra.stereo_roi_align_atlas(tl, tr, rl_t, rr_t, STRIDES)
+    narrow = t_sra.stereo_roi_align_atlas(nl, nr, rl_t, rr_t, STRIDES)
+    for a, b_ in zip(wide, narrow):
+        assert torch.equal(a[..., :35], b_)
+
+
+@pytest.mark.cuda
 def test_k2_lane_width_keeps_the_bits():
-    """K2 at C = 34 (2-channel lanes) gives the bits of the first 34
-    channels of K2 at C = 36 (8-channel lanes) on the same cotangent: a
-    channel's terms are summed in the same order at either width."""
+    """K2 at C = 34 (2-channel lanes) and C = 33 (1-channel lanes) gives
+    the bits of the first 34 (33) channels of K2 at C = 36 (8-channel
+    lanes) on the same cotangent: a channel's terms are summed in the same
+    order at every width."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     _, _, rl, rr = _k1_inputs(256)
@@ -317,22 +352,25 @@ def test_k2_lane_width_keeps_the_bits():
                     generator=torch.Generator(dev).manual_seed(2))
     k2 = t_sra.stereo_roi_align_bwd_kernel
     wide = k2(g, rl_t, rr_t, shapes, STRIDES)
-    narrow = k2(g[..., :34].contiguous(), rl_t, rr_t, shapes, STRIDES)
-    for a, b_ in zip(wide[0] + wide[1], narrow[0] + narrow[1]):
-        assert torch.equal(a[..., :34], b_)
+    for c in (34, 33):
+        narrow = k2(g[..., :c].contiguous(), rl_t, rr_t, shapes, STRIDES)
+        for a, b_ in zip(wide[0] + wide[1], narrow[0] + narrow[1]):
+            assert torch.equal(a[..., :c], b_)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 35, 2056])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k4_cuda_kernel_matches_plain(dtype):
+def test_k4_cuda_kernel_matches_plain(dtype, c):
     """K4 against its plain version, one launch for both images, and
-    against K1 f32 on the same inputs.  1e-4, as
-    K1: the right pool sums its taps per distinct cell, in another float32
-    order than the mean of four samples; the left side is K1's arithmetic.
-    A zero-area roi writes zeros."""
+    against K1 f32 on the same inputs, with 8-channel lanes (C = 256),
+    1-channel lanes (C = 35) and two passes of its lanes (C = 2056).
+    1e-4, as K1: the right pool sums its taps per distinct cell, in
+    another float32 order than the mean of four samples; the left side is
+    K1's arithmetic.  A zero-area roi writes zeros."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    fl, fr, rl, rr = _k1_inputs(256)
+    fl, fr, rl, rr = _k1_inputs(c)
     dev = torch.device("cuda")
     tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
     tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
@@ -353,6 +391,6 @@ def test_k4_cuda_kernel_matches_plain(dtype):
     b, r = rl.shape[:2]
     for o, rows in zip(out, (slice(196, 245), slice(245, 294),
                              slice(0, 196))):
-        torch.testing.assert_close(o.reshape(b, r, -1, 256),
+        torch.testing.assert_close(o.reshape(b, r, -1, c),
                                    packed[:, :, rows], atol=1e-4, rtol=0)
     assert all(o[0, 2].abs().max().item() == 0.0 for o in out)

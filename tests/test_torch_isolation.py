@@ -13,7 +13,8 @@ training and evaluation tools (``tools.train``, ``supervise_train``,
 ``eval_synth``, ``test_net``, ``smoke_e2e`` and what they use) and runs
 one ``tools.train`` step of that config, given as JSON, on a ``.npy``
 KITTI tree.  Last it imports the serving, calibration, diagnosis, demo
-and upstream-import modules and runs ``tools.demo`` (which also refuses
+and upstream-import modules, data parallelism (``parallel/``), RoIPool
+and the multichip dry run, and runs ``tools.demo`` (which also refuses
 matplotlib, cv2 and PIL: the card's machine has none of them).
 """
 
@@ -125,7 +126,9 @@ SCRIPT = textwrap.dedent("""
     # the demo draws and writes its PNG without an image library.
     for name in ("serving", "convert.norm_calibrate", "convert.resnet_import",
                  "convert.stereo_import", "tools.export_model", "tools.serve",
-                 "tools.diag_3d", "tools.calibrate_norm", "tools.demo"):
+                 "tools.diag_3d", "tools.calibrate_norm", "tools.demo",
+                 "parallel", "parallel.mesh", "parallel.launch",
+                 "ops.roi_pool", "tools.dryrun_multichip"):
         importlib.import_module("stereo_rcnn_tpu_torch." + name)
     from stereo_rcnn_tpu_torch.tools import demo
     demo.main(["--synthetic", "--tiny", "--platform", "cpu", "--out",

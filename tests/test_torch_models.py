@@ -196,3 +196,26 @@ def test_group_norm_matches_flax_with_gradients():
         np.testing.assert_allclose(ours.detach().numpy(), theirs, rtol=0,
                                    atol=1e-5 * np.abs(theirs).max(),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("size_in, size_out", [((12, 40), (24, 80)),
+                                               ((5, 7), (10, 13)),
+                                               ((6, 9), (11, 17))])
+def test_bilinear_upsample_backward_is_the_adjoint(size_in, size_out):
+    """The FPN's bilinear upsampling (``_UpsampleBilinear``): the forward
+    is ``F.interpolate``'s, bit for bit; the deterministic backward (two
+    matrix products in place of ATen's atomics on the card) is its
+    gradient, to float64 rounding, at exact 2x and at cropped sizes."""
+    import torch.nn.functional as F
+    from stereo_rcnn_tpu_torch.models.resnet_fpn import _UpsampleBilinear
+    gen = torch.Generator().manual_seed(sum(size_in))
+    x = torch.randn(2, 3, *size_in, dtype=torch.float64, generator=gen,
+                    requires_grad=True)
+    g = torch.randn(2, 3, *size_out, dtype=torch.float64, generator=gen)
+    ref = F.interpolate(x, size=size_out, mode="bilinear",
+                        align_corners=False)
+    (d_ref,) = torch.autograd.grad(ref, x, g)
+    out = _UpsampleBilinear.apply(x, size_out)
+    (d_out,) = torch.autograd.grad(out, x, g)
+    assert torch.equal(out, ref)
+    torch.testing.assert_close(d_out, d_ref, rtol=0, atol=1e-12)
