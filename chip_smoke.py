@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels and drive its inference, training,
-RoIAlign-benchmark, tools, data-parallel and serving paths once on one
-GPU (or, for the data-parallel phase, on every visible card).
+RoIAlign-benchmark, tools, data-parallel, serving, multi-class,
+perf-tool and golden-capture paths once on one GPU (or, for the
+data-parallel phase, on every visible card).
 
     python3 chip_smoke.py
 
@@ -114,6 +115,25 @@ the CUDA toolkit (``nvcc``).  Phases, each raising on failure:
     cards (2 steps), a run stopped by SIGTERM after its first step (rc 75,
     one checkpoint) and its ``--resume``, and ``tools.dryrun_multichip``;
     each one's wall seconds are printed.
+14. the multi-class configuration, ``synthetic_multiclass_config()``
+    (background / Car / Van, per-class mean dims; ResNet-101, GroupNorm,
+    remat, the fused RoIAlign with f32 weights, 1280x384, bf16, 128 rois
+    per image): ``make_train_step`` at batch 8 on rendered two-class
+    scenes (seed 7), one warm-up and two timed steps (K1 and K2 launched
+    each step, finite losses, all three rows of ``cls_score`` updated);
+    ``make_full_pipeline`` at batch 16 (K1 once, detections of shape
+    [16, max_detections], finite); ``tools.train`` for 2 steps on an
+    8-frame two-class ``.npy`` tree and ``tools.test_net`` on it (both
+    ``[Car]`` and ``[Van]`` AP lines).  No plain RoIAlign version runs.
+    ms/step, peak memory and pairs/s are printed;
+15. the stage-breakdown and roofline tools (``tools.perf_breakdown``,
+    ``tools.roofline``) at batch 16 with 3 timed calls per prefix, with
+    ``--impl pallas`` (K1 launches) and ``--impl xla`` (none); no util or
+    MFU above 1.05;
+16. ``tools.capture_golden`` on a ``.pth`` in the upstream names written
+    from a random ``Config()`` model (``upstream_state_dict``), a rendered
+    ``.npy`` pair and its KITTI calib file: the ``.npz`` holds the JAX
+    tool's keys (read from its ``np.savez`` call), finite.
 
 Times of the kernels' previous versions (the two-channel K1 and K3, the
 atomic K2, the two-channel K4 and the wrappers that copied their tables
@@ -207,8 +227,34 @@ PREVIOUS_MS = {"K1": {"f32": 1.105, "kron_bf16": 1.122, "kron_hilo": 1.128,
                "K2": (0.947, 2.225),
                "K3": {(7, 2): 0.545, (14, 1): 0.868},
                "K4": (1.409, 2.777)}
+# The multi-class phase's timed training steps (after one warm-up), and
+# the calls each prefix of the perf tools times (after one warm-up).
+MULTICLASS_STEPS = 2
+PERF_TOOL_ITERS = 3
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
+
+
+def upstream_state_dict(model) -> dict:
+    """A frozen-BN model's weights under the released upstream checkpoint's
+    names, as ``convert/stereo_import.import_detector`` reads them: the
+    port's container prefixes dropped, and each frozen BN (``scale``,
+    ``bias``) written as a BatchNorm of that weight and bias with mean 0
+    and variance 1.  CPU tensors."""
+    out = {}
+    for k, v in model.state_dict().items():
+        v = v.detach().cpu().clone()
+        for prefix in ("backbone_net.", "rcnn_head.", "kpt_head."):
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+        if k.endswith(".scale"):
+            stem = k[:-len(".scale")]
+            out[stem + ".weight"] = v
+            out[stem + ".running_mean"] = torch.zeros_like(v)
+            out[stem + ".running_var"] = torch.ones_like(v)
+        else:
+            out[k] = v
+    return out
 
 
 def _device_ms(fn, iters: int, kernel: str) -> float:
@@ -2041,6 +2087,251 @@ def data_parallel(sra, dev, card, work):
     return out
 
 
+def multiclass(sra, dev, card):
+    """Phase 14: the multi-class configuration (background / Car / Van) at
+    full width: training steps, the pipeline at batch 16, and the
+    training and evaluation CLIs on a two-class tree."""
+    import os
+    import shutil
+
+    from stereo_rcnn_tpu_torch.config import (save_config,
+                                              synthetic_multiclass_config)
+    from stereo_rcnn_tpu_torch.data.synthetic import (random_scene,
+                                                      render_pair,
+                                                      synthetic_batch,
+                                                      synthetic_images,
+                                                      write_kitti_frame)
+    from stereo_rcnn_tpu_torch.geometry.calib import default_kitti_calib
+    from stereo_rcnn_tpu_torch.inference import make_full_pipeline
+    from stereo_rcnn_tpu_torch.models.detector import init_params
+    from stereo_rcnn_tpu_torch.tools import test_net, train
+    from stereo_rcnn_tpu_torch.train import (Batch, init_train_state,
+                                             make_train_step)
+    from stereo_rcnn_tpu_torch.train.targets import ground_truth_to_torch
+
+    k1, k2 = sra.stereo_roi_align_kernel, sra.stereo_roi_align_bwd_kernel
+    cfg = synthetic_multiclass_config()
+    b = cfg.train.batch_per_device
+    launches = {}
+
+    def counts():
+        return {"K1": k1.launches, "K2": k2.launches}
+
+    # Training: one warm-up and MULTICLASS_STEPS timed steps.
+    il, ir, gt, _ = synthetic_batch(cfg, b, seed=7, n_objects=5)
+    classes = set(gt.cls[gt.valid].tolist())
+    if classes != {1, 2}:
+        raise RuntimeError(f"multiclass: rendered classes {classes}")
+    batch = Batch(torch.from_numpy(il).to(dev), torch.from_numpy(ir).to(dev),
+                  ground_truth_to_torch(gt, dev))
+    state = init_train_state(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+    step = make_train_step(cfg, device=dev)
+    tgen = torch.Generator(device=dev).manual_seed(0)
+    print(f"multiclass: depth {cfg.backbone.depth}, norm "
+          f"{cfg.backbone.norm}, remat {cfg.backbone.remat}, "
+          f"{cfg.rcnn.roi_align_impl} RoIAlign ({cfg.rcnn.roi_align_hat}), "
+          f"{cfg.data.image_w}x{cfg.data.image_h}, {cfg.compute_dtype}, "
+          f"classes {cfg.data.classes}, {cfg.rcnn.rois_per_image} rois per "
+          f"image, batch {b}; GT classes {sorted(classes)}", flush=True)
+    params = dict(state.model.named_parameters())
+    cls_w = "rcnn_head.RCNN_cls_score.weight"
+    before = params[cls_w].detach().clone()
+    torch.cuda.reset_peak_memory_stats()
+    k1.reset_counts()
+    k2.reset_counts()
+    with _PlainCalls(sra) as plain:
+        times, host = _train_steps(
+            step, state, batch, tgen, params,
+            (cls_w, "backbone_net.RCNN_layer4.0.conv2.weight"),
+            MULTICLASS_STEPS, card, "multiclass train")
+    launches["training"] = counts()
+    expect = MULTICLASS_STEPS + 1
+    if plain or launches["training"] != {"K1": expect, "K2": expect}:
+        raise RuntimeError(f"multiclass training: launches "
+                           f"{launches['training']} (expected {expect} "
+                           f"each), plain versions {plain}")
+    moved = (params[cls_w].detach() - before).abs().amax(dim=1)
+    if moved.numel() != 3 or not bool((moved > 0).all()):
+        raise RuntimeError(f"multiclass: cls_score rows moved {moved}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = sorted(times)[len(times) // 2]
+    print(f"multiclass training: {ms:.1f} ms/step (median of {len(times)}:"
+          f" {', '.join(f'{t:.1f}' for t in times)}; host "
+          f"{', '.join(f'{t:.1f}' for t in host)}), {b * 1000.0 / ms:.2f} "
+          f"pairs/s at batch {b}, peak memory {peak:.2f} GiB; launches "
+          f"{launches['training']}; cls_score rows (bg, Car, Van) moved "
+          f"{[f'{v:.2e}' for v in moved.tolist()]}  [{card}]", flush=True)
+    del state, step, batch, params, before
+    torch.cuda.empty_cache()
+
+    # The pipeline at batch 16 with K1.
+    bi = 16
+    model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    il, ir, calib = synthetic_images(cfg, bi, seed=7, n_objects=5)
+    left, right = torch.from_numpy(il).to(dev), torch.from_numpy(ir).to(dev)
+    fn = make_full_pipeline(cfg, calib)
+    k1.reset_counts()
+    k2.reset_counts()
+    with _PlainCalls(sra) as plain:
+        out = fn(model, left, right)
+        torch.cuda.synchronize()
+    launches["inference"] = counts()
+    if plain or launches["inference"] != {"K1": 1, "K2": 0}:
+        raise RuntimeError(f"multiclass inference: launches "
+                           f"{launches['inference']}, plain {plain}")
+    n_valid = _check_detections(out, bi, cfg.rcnn.max_detections)
+    by_class = {int(c): int(((out.det.cls == c) & out.det.valid).sum())
+                for c in (1, 2)}
+    call_ms = _events_ms(lambda: fn(model, left, right), 3)
+    print(f"multiclass inference: batch {bi}, {n_valid} valid detections "
+          f"(by class {by_class}), detections "
+          f"{tuple(out.det.valid.shape)}, {call_ms:.1f} ms per call, "
+          f"{bi * 1000.0 / call_ms:.2f} pairs/s  [{card}]", flush=True)
+    del model, out, left, right
+    torch.cuda.empty_cache()
+
+    # tools.train then tools.test_net on an 8-frame two-class tree.
+    work = os.path.join("runs", "chip_smoke_multiclass")
+    shutil.rmtree(work, ignore_errors=True)
+    tree, ck = os.path.join(work, "kitti"), os.path.join(work, "ckpt")
+    os.makedirs(work)
+    cfg_json = os.path.join(work, "synthetic_multiclass.json")
+    save_config(cfg, cfg_json)
+    kcalib = default_kitti_calib()
+    rng = np.random.RandomState(13)
+    n_van = 0
+    for i in range(8):
+        objs = random_scene(rng, 4, kcalib, 375, 1242,
+                            class_names=("Car", "Van"))
+        n_van += sum(o.type == "Van" for o in objs)
+        left, right = render_pair(objs, kcalib, 375, 1242, rng)
+        write_kitti_frame(tree, f"{i:06d}", objs, kcalib, left, right)
+    if not n_van:
+        raise RuntimeError("multiclass: the tree holds no Van")
+    walls = {}
+    k1.reset_counts()
+    k2.reset_counts()
+    with _PlainCalls(sra) as plain:
+        state, _, walls["train"] = _cli(
+            "mc train", train.run, train.parse_args(
+                ["--config", cfg_json, "--kitti-root", tree, "--image-ext",
+                 ".npy", "--batch-per-device", "8", "--ckpt-dir", ck,
+                 "--epochs", "2", "--disp-interval", "1"]))
+        got_train = counts()
+        k1.reset_counts()
+        k2.reset_counts()
+        _, out, walls["test_net"] = _cli("mc test_net", test_net.main, [
+            "--kitti-root", tree, "--ckpt-dir", ck, "--out",
+            os.path.join(work, "results"), "--batch", "8", "--image-ext",
+            ".npy"])
+        got_test = counts()
+    launches["tools"] = {"K1": got_train["K1"] + got_test["K1"],
+                         "K2": got_train["K2"]}
+    if (plain or state.step != 2 or got_train != {"K1": 2, "K2": 2} or
+            got_test["K1"] < 1 or got_test["K2"]):
+        raise RuntimeError(f"multiclass tools: step {state.step}, train "
+                           f"launches {got_train}, test_net {got_test}, "
+                           f"plain {plain}")
+    for name in ("Car", "Van"):
+        if f"[{name}] AP_3d@0.5 (R40)" not in out:
+            raise RuntimeError(f"multiclass: test_net printed no {name} AP")
+    del state
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    print(f"multiclass tools: train {walls['train']:.1f} s, test_net "
+          f"{walls['test_net']:.1f} s; both per-class AP lines printed; "
+          f"launches {launches['tools']}; plain versions 0 calls  [{card}]",
+          flush=True)
+    return {"ms": ms, "pairs_per_s": b * 1000.0 / ms, "peak_gib": peak,
+            "launches": launches}
+
+
+def perf_tools(sra, card):
+    """Phase 15: the stage-breakdown and roofline tools as a user runs
+    them, at batch 16, with the fused RoIAlign and with the gather."""
+    from stereo_rcnn_tpu_torch.tools import perf_breakdown, roofline
+
+    k1 = sra.stereo_roi_align_kernel
+    launches = {}
+    tables = {}
+    for impl in ("pallas", "xla"):
+        argv = ["--batch", "16", "--iters", str(PERF_TOOL_ITERS), "--impl",
+                impl]
+        k1.reset_counts()
+        with _PlainCalls(sra) as plain:
+            _cli(f"perf_breakdown {impl}", perf_breakdown.main, argv)
+            rows, _, _ = _cli(f"roofline {impl}", roofline.main, argv)
+        launches[impl] = k1.launches
+        if plain or (k1.launches > 0) != (impl == "pallas"):
+            raise RuntimeError(f"perf_tools {impl}: K1 launches "
+                               f"{k1.launches}, plain versions {plain}")
+        worst = max(max(r["util"], r["mfu"]) for r in rows)
+        if worst > roofline.MAX_SHARE:
+            raise RuntimeError(f"perf_tools {impl}: a share {worst} above "
+                               f"{roofline.MAX_SHARE}")
+        tables[impl] = rows
+        torch.cuda.empty_cache()
+    print(f"perf_tools: K1 launches {launches}; no util or MFU above "
+          f"{roofline.MAX_SHARE}  [{card}]", flush=True)
+    return {"launches": launches["pallas"], "tables": tables}
+
+
+def golden(dev, card):
+    """Phase 16: ``tools.capture_golden`` on a ``.pth`` in the upstream
+    names written from a random ``Config()`` model."""
+    import ast
+    import os
+    import shutil
+
+    from stereo_rcnn_tpu_torch.config import Config
+    from stereo_rcnn_tpu_torch.data.synthetic import (random_scene,
+                                                      render_pair,
+                                                      write_kitti_frame)
+    from stereo_rcnn_tpu_torch.geometry.calib import default_kitti_calib
+    from stereo_rcnn_tpu_torch.models.detector import init_params
+    from stereo_rcnn_tpu_torch.tools import capture_golden
+
+    work = os.path.join("runs", "chip_smoke_golden")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    model = init_params(Config(), torch.Generator().manual_seed(0), dev)
+    pth = os.path.join(work, "upstream.pth")
+    torch.save({"model": upstream_state_dict(model), "epoch": 12}, pth)
+    del model
+    calib = default_kitti_calib()
+    rng = np.random.RandomState(17)
+    objs = random_scene(rng, 4, calib, 375, 1242)
+    left, right = render_pair(objs, calib, 375, 1242, rng)
+    write_kitti_frame(work, "000000", objs, calib, left, right)
+    tr = os.path.join(work, "training")
+    npz = os.path.join(work, "golden.npz")
+    arrays, out, wall = _cli("capture_golden", capture_golden.main, [
+        "--pth", pth, "--left", os.path.join(tr, "image_2", "000000.npy"),
+        "--right", os.path.join(tr, "image_3", "000000.npy"), "--calib",
+        os.path.join(tr, "calib", "000000.txt"), "--out", npz])
+    # The JAX tool's keys, read from its np.savez call.
+    with open(os.path.join("tools", "capture_golden.py")) as f:
+        keys = next(tuple(k.arg for k in node.keywords)
+                    for node in ast.walk(ast.parse(f.read()))
+                    if isinstance(node, ast.Call) and
+                    getattr(node.func, "attr", "") == "savez")
+    with np.load(npz) as f:
+        saved = {k: f[k] for k in f.files}
+    valid = saved["valid"]
+    bad = [k for k, v in saved.items() if k != "valid" and
+           not np.isfinite(v[valid] if v.ndim and len(v) == len(valid)
+                           else v).all()]
+    if (tuple(saved) != keys or bad or "UNCLAIMED" in out or
+            "checkpoint extras: ['epoch']" not in out):
+        raise RuntimeError(f"golden: keys {tuple(saved)} (the JAX tool's: "
+                           f"{keys}), non-finite {bad}")
+    shutil.rmtree(work)
+    print(f"golden: {wall:.1f} s, {int(valid.sum())} detections, the JAX "
+          f"tool's {len(keys)} keys, finite  [{card}]", flush=True)
+    return saved
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--training-only", action="store_true",
@@ -2116,6 +2407,9 @@ def main(argv=None) -> int:
     cli, work = phase("tools", tools, sra, dev, card)
     dp = phase("data_parallel", data_parallel, sra, dev, card, work)
     served = phase("serving", serving, sra, dev, card, work)
+    mc = phase("multiclass", multiclass, sra, dev, card)
+    perf = phase("perf_tools", perf_tools, sra, card)
+    phase("golden", golden, dev, card)
 
     total = time.perf_counter() - t_start
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
@@ -2130,6 +2424,9 @@ def main(argv=None) -> int:
             paths["training"] = train["pallas"]["launches"]["K1"]
             paths["tools"] = cli["K1"]
             paths["data_parallel training"] = dp["launches"]["K1"]
+            for what in ("training", "inference", "tools"):
+                paths[f"multiclass {what}"] = mc["launches"][what]["K1"]
+            paths["perf_tools"] = perf["launches"]
         if hat == "kron_bf16":
             paths["data_parallel inference"] = dp["launches"]["K1 kron_bf16"]
         if served.get(hat):
@@ -2152,6 +2449,8 @@ def main(argv=None) -> int:
                      for impl, t in train.items()})
     k2_paths["tools"] = cli["K2"]
     k2_paths["data_parallel training"] = dp["launches"]["K2"]
+    k2_paths["multiclass training"] = mc["launches"]["training"]["K2"]
+    k2_paths["multiclass tools"] = mc["launches"]["tools"]["K2"]
     entries.append({
         "name": "stereo_roi_align_bwd", "route": "cuda",
         "source": "stereo_rcnn_tpu_torch/csrc/stereo_roi_align_bwd.cu",

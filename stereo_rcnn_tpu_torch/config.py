@@ -256,6 +256,14 @@ class Config:
         return dataclasses.replace(self, **kwargs)
 
 
+def _deep_tuple(value: Any) -> Any:
+    """A list, and the lists inside it (per-class ``mean_dims_hwl`` rows),
+    as tuples."""
+    if isinstance(value, list):
+        return tuple(_deep_tuple(v) for v in value)
+    return value
+
+
 def _update_dataclass(obj: Any, overrides: Mapping[str, Any]) -> Any:
     """Recursively apply a nested mapping of overrides to a dataclass tree."""
     changes = {}
@@ -267,7 +275,7 @@ def _update_dataclass(obj: Any, overrides: Mapping[str, Any]) -> Any:
             changes[key] = _update_dataclass(current, value)
         else:
             if isinstance(current, tuple) and isinstance(value, Sequence):
-                value = tuple(value)
+                value = tuple(_deep_tuple(v) for v in value)
             changes[key] = value
     return dataclasses.replace(obj, **changes)
 
@@ -302,7 +310,8 @@ def load_config(yaml_path: str | None = None,
     ``.json`` file is read with the standard library (the port's own
     format: :func:`save_config` writes it, and a host without PyYAML
     reads it); any other file is YAML.  List values of tuple fields come
-    back as tuples, so a saved config loads equal to the original.
+    back as tuples, nested lists as nested tuples, so a saved config
+    loads equal to the original.
     """
     cfg = Config() if base is None else base
     if yaml_path is not None:
@@ -339,6 +348,24 @@ def synthetic_fullres_config() -> Config:
         train=dataclasses.replace(base.train, learning_rate=0.002,
                                   lr_decay_step=48, epochs=64,
                                   batch_per_device=8))
+
+
+def synthetic_multiclass_config() -> Config:
+    """``configs/synthetic_multiclass.yml`` over ``Config()``, built without
+    PyYAML: :func:`synthetic_fullres_config` with three classes
+    (background / Car / Van), Truck and DontCare ignored, and per-class
+    mean (h, w, l): Car's KITTI train means, Van's the middle of the
+    renderer's Van sizes (pinned equal to the YAML by
+    ``tests/test_torch_multiclass.py``)."""
+    base = synthetic_fullres_config()
+    return dataclasses.replace(
+        base,
+        data=dataclasses.replace(
+            base.data, classes=("__background__", "Car", "Van"),
+            ignore_types=("Truck", "DontCare")),
+        rcnn=dataclasses.replace(
+            base.rcnn, num_classes=3,
+            mean_dims_hwl=((1.53, 1.63, 3.88), (2.15, 1.85, 5.05))))
 
 
 def tiny_test_config() -> Config:

@@ -7,7 +7,7 @@ of the RPN head outputs.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +29,12 @@ def base_anchors(scale: float, ratios: Sequence[float],
     return np.asarray(out, dtype=np.float32)
 
 
+def level_shapes(image_h: int, image_w: int,
+                 strides: Sequence[int]) -> List[Tuple[int, int]]:
+    """(H, W) of each pyramid level for a given padded image size."""
+    return [(-(-image_h // s), -(-image_w // s)) for s in strides]
+
+
 def generate_anchors(cfg: AnchorConfig, image_h: int, image_w: int,
                      off: float = 0.0,
                      device: torch.device | str | None = None
@@ -47,3 +53,10 @@ def generate_anchors(cfg: AnchorConfig, image_h: int, image_w: int,
         per_level.append(anchors.reshape(-1, 4))
     return torch.from_numpy(np.concatenate(per_level, axis=0)).to(
         resolve_device(device))
+
+
+def anchors_per_level(cfg: AnchorConfig, image_h: int,
+                      image_w: int) -> List[int]:
+    """Anchor count of each level, in :func:`generate_anchors`' order."""
+    return [fh * fw * cfg.num_anchors_per_cell
+            for fh, fw in level_shapes(image_h, image_w, cfg.strides)]

@@ -96,3 +96,18 @@ def decode_stereo_boxes(anchors: torch.Tensor, deltas: torch.Tensor,
     left = cxcywh_to_xyxy(torch.stack([cx, cy, w, h], dim=-1))
     right = cxcywh_to_xyxy(torch.stack([cx_r, cy, w_r, h], dim=-1))
     return left, right
+
+
+def encode_boxes(anchors: torch.Tensor, gt: torch.Tensor,
+                 off: float = 0.0) -> torch.Tensor:
+    """Plain 4-tuple Faster R-CNN encoding ``[tx, ty, tw, th]``."""
+    return encode_stereo_boxes(anchors, gt, gt, off)[..., :4]
+
+
+def decode_boxes(anchors: torch.Tensor, deltas: torch.Tensor,
+                 off: float = 0.0) -> torch.Tensor:
+    """Inverse of :func:`encode_boxes` -> xyxy [..., 4]."""
+    pad = torch.stack([deltas[..., 0], deltas[..., 2]], dim=-1)
+    left, _ = decode_stereo_boxes(anchors, torch.cat([deltas, pad], dim=-1),
+                                  off)
+    return left

@@ -47,3 +47,35 @@ def project(points: torch.Tensor, calib, right: bool = False) -> torch.Tensor:
 def project_box3d(center, dims_hwl, ry, calib, right: bool = False):
     """Projected 2D corners [..., 8, 2] of a 3D box."""
     return project(box3d_corners(center, dims_hwl, ry), calib, right=right)
+
+
+def box2d_from_3d(center, dims_hwl, ry, calib,
+                  right: bool = False) -> torch.Tensor:
+    """Tight xyxy box [..., 4] of the projected 3D box (how the right GT
+    box is derived: the pose projected through P3)."""
+    uv = project_box3d(center, dims_hwl, ry, calib, right=right)
+    return torch.cat([uv.amin(dim=-2), uv.amax(dim=-2)], dim=-1)
+
+
+def perspective_keypoints(center, dims_hwl, ry, calib) -> torch.Tensor:
+    """u [..., 4] of the four vertical-edge keypoints in the left image,
+    indexed by bottom corner k."""
+    return project_box3d(center, dims_hwl, ry, calib)[..., :4, 0]
+
+
+def visible_keypoint_index(center: torch.Tensor,
+                           ry: torch.Tensor) -> torch.Tensor:
+    """Index k of the nearest vertical edge in depth (the perspective
+    keypoint the solver uses); the box's size does not change it."""
+    corners = box3d_corners(center, torch.ones_like(center), ry)
+    return torch.argmin(corners[..., :4, 2], dim=-1)
+
+
+def viewpoint_alpha(center: torch.Tensor, ry: torch.Tensor) -> torch.Tensor:
+    """KITTI observation angle alpha = ry - atan2(x, z)."""
+    return ry - torch.atan2(center[..., 0], center[..., 2])
+
+
+def ry_from_alpha(alpha: torch.Tensor, x: torch.Tensor,
+                  z: torch.Tensor) -> torch.Tensor:
+    return alpha + torch.atan2(x, z)

@@ -185,6 +185,27 @@ def solve_batch(obs: torch.Tensor, dims_hwl: torch.Tensor,
                        residual=torch.sqrt(torch.mean(r ** 2, dim=-1)))
 
 
+def solve_pose(obs: torch.Tensor, dims_hwl: torch.Tensor, alpha, kpt_idx,
+               calib: StereoCalib, obs_weights: torch.Tensor | None = None,
+               iters: int = 30, damping: float = 1e-3,
+               fixed_z=None) -> SolveResult:
+    """One detection (obs [7], dims [3], scalar alpha, kpt_idx and
+    fixed_z) through :func:`solve_batch`; ``calib`` holds one
+    calibration (numbers or 0-d tensors)."""
+    dev = obs.device
+
+    def one(x, dtype=None):
+        return torch.as_tensor(x, dtype=dtype, device=dev)[None]
+
+    res = solve_batch(
+        obs[None], dims_hwl[None], one(alpha, obs.dtype), one(kpt_idx),
+        calib, obs_weights=None if obs_weights is None else obs_weights[None],
+        iters=iters, damping=damping,
+        fixed_z=None if fixed_z is None else one(fixed_z, obs.dtype))
+    return SolveResult(position=res.position[0], theta=res.theta[0],
+                       residual=res.residual[0])
+
+
 def observations_from_detection(box_left: torch.Tensor,
                                 box_right: torch.Tensor,
                                 kpt_u: torch.Tensor) -> torch.Tensor:

@@ -157,3 +157,24 @@ def align_batch(left_gray: torch.Tensor, right_gray: torch.Tensor,
     return AlignResult(z=torch.where(ok, z2, z0),
                        error=torch.where(ok, err2,
                                          torch.full_like(err2, torch.inf)))
+
+
+def align_depth(left_gray: torch.Tensor, right_gray: torch.Tensor,
+                box_left: torch.Tensor, border_u: torch.Tensor,
+                position: torch.Tensor, theta, dims_hwl: torch.Tensor,
+                calib: StereoCalib, cfg: SolverConfig,
+                valid) -> AlignResult:
+    """One detection on one pair ([H, W] images, box [4], border [2],
+    position [3], dims [3], scalar theta and valid) through
+    :func:`align_batch`; ``calib`` holds one calibration (numbers or 0-d
+    tensors)."""
+    dev = left_gray.device
+    cal = StereoCalib(*[torch.as_tensor(v, dtype=torch.float32,
+                                        device=dev)[None] for v in calib])
+    res = align_batch(
+        left_gray[None], right_gray[None], box_left[None, None],
+        border_u[None, None], position[None, None],
+        torch.as_tensor(theta, dtype=position.dtype, device=dev)[None, None],
+        dims_hwl[None, None], cal, cfg,
+        torch.as_tensor(valid, dtype=torch.bool, device=dev)[None, None])
+    return AlignResult(z=res.z[0, 0], error=res.error[0, 0])

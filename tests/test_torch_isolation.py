@@ -2,7 +2,7 @@
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
 ``flax``, ``optax``, ``orbax``, ``yaml``, ``matplotlib``, ``cv2`` and
-``PIL``, imports the port (the
+``PIL`` (and the JAX package ``stereo_rcnn_tpu``), imports the port (the
 windowed RoIAlign and the ``bench_roialign`` tool included), builds the
 tiny frozen-BN config and runs ``make_full_pipeline`` on the CPU with the
 fused RoIAlign and with the atlas gather (``roi_align_impl="xla"``), then
@@ -14,7 +14,9 @@ training and evaluation tools (``tools.train``, ``supervise_train``,
 one ``tools.train`` step of that config, given as JSON, on a ``.npy``
 KITTI tree.  Last it imports the serving, calibration, diagnosis, demo
 and upstream-import modules, data parallelism (``parallel/``), RoIPool
-and the multichip dry run, and runs ``tools.demo`` (which also refuses
+and the multichip dry run; the public ``geometry`` and ``solve`` helpers,
+``synthetic_multiclass_config`` and the stage-breakdown, roofline and
+golden-capture tools; and runs ``tools.demo`` (which also refuses
 matplotlib, cv2 and PIL: the card's machine has none of them).
 """
 
@@ -30,7 +32,7 @@ SCRIPT = textwrap.dedent("""
     import sys
 
     BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml",
-               "matplotlib", "cv2", "PIL")
+               "matplotlib", "cv2", "PIL", "stereo_rcnn_tpu")
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -130,6 +132,21 @@ SCRIPT = textwrap.dedent("""
                  "parallel", "parallel.mesh", "parallel.launch",
                  "ops.roi_pool", "tools.dryrun_multichip"):
         importlib.import_module("stereo_rcnn_tpu_torch." + name)
+    # The public geometry and solve helpers, the multi-class config, the
+    # stage-breakdown, roofline and golden-capture tools.
+    from stereo_rcnn_tpu_torch.config import synthetic_multiclass_config
+    from stereo_rcnn_tpu_torch.geometry import (anchors_per_level,
+                                                box2d_from_3d, decode_boxes,
+                                                encode_boxes, level_shapes,
+                                                perspective_keypoints,
+                                                ry_from_alpha,
+                                                viewpoint_alpha,
+                                                visible_keypoint_index)
+    from stereo_rcnn_tpu_torch.solve import align_depth, solve_pose
+    assert synthetic_multiclass_config().rcnn.num_classes == 3
+    for name in ("tools.perf_breakdown", "tools.roofline",
+                 "tools.capture_golden"):
+        importlib.import_module("stereo_rcnn_tpu_torch." + name)
     from stereo_rcnn_tpu_torch.tools import demo
     demo.main(["--synthetic", "--tiny", "--platform", "cpu", "--out",
                os.path.join(work, "demo.png")])
@@ -143,6 +160,8 @@ SCRIPT = textwrap.dedent("""
 def test_port_runs_without_jax(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    # One intra-op thread: the tier-1 run shares the host among workers.
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)],
                           cwd=str(tmp_path), env=env, capture_output=True,
                           text=True, timeout=600)

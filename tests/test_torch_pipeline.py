@@ -255,3 +255,38 @@ def test_full_pipeline_end_to_end(run):
     np.testing.assert_allclose(out.det.box_left.numpy(),
                                np.asarray(full.det.box_left), atol=1e-3)
     _check_positions(out, full, run["stable"](full))
+
+
+def test_deferred_keypoints_match_full_pass(run):
+    """The twin of ``tests/test_kpt_deferred.py``: the keypoint convs on
+    the NMS survivors only (``run_keypoints``) equal the branch run on
+    every proposal and then gathered at the survivors, on the port's own
+    forward pass; and both equal the JAX package's deferred pass (the
+    same survivors: 1e-3 px, types exactly)."""
+    cfg, model = run["cfg"], run["model"]
+    h, w = cfg.data.image_h, cfg.data.image_w
+    with torch.no_grad():
+        raw = t_det.forward_raw(model, _t(run["il"]), _t(run["ir"]))
+        det, idx, rois = t_det.postprocess_boxes(raw, cfg, h, w)
+        deferred = t_det.run_keypoints(model, raw, det, idx, rois)
+        b, n, rows, c = raw["kpt_feats"].shape
+        pk = cfg.rcnn.kpt_pool_size
+        kl = model.keypoints(raw["kpt_feats"][:, :, :pk * pk].reshape(
+            b * n, pk, pk, c))
+        kl = kl.reshape(b, n, *kl.shape[1:])
+        kl_sel = torch.stack([kl[i, idx[i]] for i in range(b)])
+        ku, kt, kp, bu = t_det.decode_keypoints(kl_sel, rois,
+                                                cfg.rcnn.kpt_softmax)
+    torch.testing.assert_close(deferred.kpt_u, ku, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(deferred.kpt_type.numpy(), kt.numpy())
+    torch.testing.assert_close(deferred.kpt_prob, kp, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(deferred.border_u, bu, rtol=1e-5, atol=1e-5)
+    assert deferred.valid.any()
+    jk = run["det_k"]
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(run["idx"]))
+    np.testing.assert_array_equal(deferred.kpt_type.numpy(),
+                                  np.asarray(jk.kpt_type))
+    for name in ("kpt_u", "border_u"):
+        np.testing.assert_allclose(getattr(deferred, name).numpy(),
+                                   np.asarray(getattr(jk, name)), atol=1e-3,
+                                   err_msg=name)
