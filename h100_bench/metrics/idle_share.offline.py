@@ -1,0 +1,2 @@
+"""Share of the traced window with the card idle, offline (%)."""
+from h100_bench.readers import idle_percent as read  # noqa: F401
