@@ -21,6 +21,7 @@ from stereo_rcnn_tpu_torch.models.detector import Detections, make_inference_fn
 from stereo_rcnn_tpu_torch.solve.box_estimator import (
     observations_from_detection, solve_batch)
 from stereo_rcnn_tpu_torch.solve.dense_align import align_batch
+from stereo_rcnn_tpu_torch.utils.profiling import span
 
 
 class Detections3D(NamedTuple):
@@ -78,27 +79,32 @@ def solve_and_align(det: Detections, images_left: torch.Tensor,
     if content_wh is None:
         content_wh = torch.tensor([float(im_w), float(im_h)],
                                   device=dev).expand(b, 2)
-    gray_l = images_left.mean(-1)
-    gray_r = images_right.mean(-1)
 
     def flat(x):
         return x.reshape(b * d, *x.shape[2:])
 
-    per_det = StereoCalib(*[v.repeat_interleave(d, dim=0)
-                            for v in calib_batch])           # [B*D]
-    obs = observations_from_detection(flat(det.box_left),
-                                      flat(det.box_right), flat(det.kpt_u))
-    w = truncation_weights(det.box_left, det.box_right, det.kpt_u,
-                           det.kpt_prob, content_wh[:, 0:1],
-                           content_wh[:, 1:2])
-    args = (obs, flat(det.dims), flat(det.alpha), flat(det.kpt_type),
-            per_det)
-    kw = dict(obs_weights=flat(w), iters=sc.gn_iters, damping=sc.gn_damping)
-    res = solve_batch(*args, **kw)
-    ar = align_batch(gray_l, gray_r, det.box_left, det.border_u,
-                     res.position.reshape(b, d, 3), res.theta.reshape(b, d),
-                     det.dims, calib_batch, sc, det.valid)
-    res2 = solve_batch(*args, fixed_z=flat(ar.z), **kw)
+    with span("infer/solve"):
+        per_det = StereoCalib(*[v.repeat_interleave(d, dim=0)
+                                for v in calib_batch])       # [B*D]
+        obs = observations_from_detection(flat(det.box_left),
+                                          flat(det.box_right),
+                                          flat(det.kpt_u))
+        w = truncation_weights(det.box_left, det.box_right, det.kpt_u,
+                               det.kpt_prob, content_wh[:, 0:1],
+                               content_wh[:, 1:2])
+        args = (obs, flat(det.dims), flat(det.alpha), flat(det.kpt_type),
+                per_det)
+        kw = dict(obs_weights=flat(w), iters=sc.gn_iters,
+                  damping=sc.gn_damping)
+        res = solve_batch(*args, **kw)
+    with span("infer/align"):
+        ar = align_batch(images_left.mean(-1), images_right.mean(-1),
+                         det.box_left, det.border_u,
+                         res.position.reshape(b, d, 3),
+                         res.theta.reshape(b, d), det.dims, calib_batch, sc,
+                         det.valid)
+    with span("infer/solve"):
+        res2 = solve_batch(*args, fixed_z=flat(ar.z), **kw)
     return Detections3D(det=det, position=res2.position.reshape(b, d, 3),
                         ry=res2.theta.reshape(b, d), z_refined=ar.z,
                         residual=res2.residual.reshape(b, d))
@@ -118,9 +124,10 @@ def make_full_pipeline(cfg: Config, calib: StereoCalib | None = None,
     @torch.no_grad()
     def fn_calib(model, images_left, images_right, calib_batch: StereoCalib,
                  content_wh: torch.Tensor | None = None) -> Detections3D:
-        det = infer(model, images_left, images_right)
-        return solve_and_align(det, images_left, images_right, calib_batch,
-                               cfg, content_wh)
+        with span("infer/pipeline", new_call=True):
+            det = infer(model, images_left, images_right)
+            return solve_and_align(det, images_left, images_right,
+                                   calib_batch, cfg, content_wh)
 
     if calib is None:
         return fn_calib

@@ -40,6 +40,7 @@ from stereo_rcnn_tpu_torch.models.stereo_rpn import (Proposals, StereoRPNHead,
 from stereo_rcnn_tpu_torch.ops.nms import nms_indices, top_k_stable
 from stereo_rcnn_tpu_torch.ops.roi_align import multilevel_roi_align
 from stereo_rcnn_tpu_torch.ops.stereo_roi_align import stereo_roi_align_packed
+from stereo_rcnn_tpu_torch.utils.profiling import span
 
 
 class StereoRCNN(nn.Module):
@@ -91,30 +92,35 @@ def forward_raw(model: StereoRCNN, images_left: torch.Tensor,
     cfg = model.cfg
     b, im_h, im_w, _ = images_left.shape
 
-    feats = model.backbone(torch.cat([images_left, images_right], dim=0))
-    feats_l = [f[:b] for f in feats]
-    feats_r = [f[b:] for f in feats]
+    with span("infer/backbone"):
+        feats = model.backbone(torch.cat([images_left, images_right], dim=0))
+        feats_l = [f[:b] for f in feats]
+        feats_r = [f[b:] for f in feats]
 
-    logits, deltas = model.rpn(feats_l, feats_r)             # [B, A, 2|6]
-    anchors = generate_anchors(cfg.anchors, im_h, im_w, off=cfg.box_off,
-                               device=images_left.device)
-    props = select_proposals(logits, deltas, anchors, im_h, im_w, cfg.rpn,
-                             train, off=cfg.box_off)
+    with span("infer/rpn"):
+        logits, deltas = model.rpn(feats_l, feats_r)         # [B, A, 2|6]
+        anchors = generate_anchors(cfg.anchors, im_h, im_w, off=cfg.box_off,
+                                   device=images_left.device)
+        props = select_proposals(logits, deltas, anchors, im_h, im_w,
+                                 cfg.rpn, train, off=cfg.box_off)
 
-    pooled = roi_features(model, feats_l, feats_r, props.left, props.right)
-    outputs = model.heads(pooled["concat"])
-    n = props.left.shape[1]
-    rows = pooled["left_kpt_rows"].shape[1]
-    return {
-        "rpn_logits": logits,
-        "rpn_deltas": deltas,
-        "anchors": anchors,
-        "proposals": props,
-        "rcnn": RCNNOutputs(*[x.reshape(b, n, *x.shape[1:])
-                              for x in outputs]),
-        "kpt_feats": pooled["left_kpt_rows"].reshape(
-            b, n, rows, pooled["left_kpt_rows"].shape[-1]),
-    }
+    with span("infer/roi_align"):
+        pooled = roi_features(model, feats_l, feats_r, props.left,
+                              props.right)
+    with span("infer/heads"):
+        outputs = model.heads(pooled["concat"])
+        n = props.left.shape[1]
+        rows = pooled["left_kpt_rows"].shape[1]
+        return {
+            "rpn_logits": logits,
+            "rpn_deltas": deltas,
+            "anchors": anchors,
+            "proposals": props,
+            "rcnn": RCNNOutputs(*[x.reshape(b, n, *x.shape[1:])
+                                  for x in outputs]),
+            "kpt_feats": pooled["left_kpt_rows"].reshape(
+                b, n, rows, pooled["left_kpt_rows"].shape[-1]),
+        }
 
 
 def roi_features(model: StereoRCNN, feats_l, feats_r, rois_left,
@@ -355,7 +361,9 @@ def make_inference_fn(cfg: Config, im_h: int | None = None,
     @torch.no_grad()
     def fn(model: StereoRCNN, images_left, images_right) -> Detections:
         raw = forward_raw(model, images_left, images_right, train=False)
-        det, idx, rois = postprocess_boxes(raw, cfg, h, w)
-        return run_keypoints(model, raw, det, idx, rois)
+        with span("infer/post"):
+            det, idx, rois = postprocess_boxes(raw, cfg, h, w)
+        with span("infer/keypoints"):
+            return run_keypoints(model, raw, det, idx, rois)
 
     return fn

@@ -27,6 +27,8 @@ from typing import NamedTuple
 
 import torch
 
+from stereo_rcnn_tpu_torch.utils.profiling import span
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
@@ -87,8 +89,10 @@ def load_library(source: str) -> tuple[ctypes.CDLL, BuildInfo]:
         os.close(fd)
         t0 = time.perf_counter()
         try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path],
-                                  capture_output=True, text=True)
+            with span("setup/kernel_build"):
+                proc = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path],
+                    capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {source} "
                                    f"(exit {proc.returncode}):\n"
@@ -99,7 +103,9 @@ def load_library(source: str) -> tuple[ctypes.CDLL, BuildInfo]:
                 os.remove(tmp)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
-    return ctypes.CDLL(lib_path), BuildInfo(lib_path, seconds, log)
+    with span("setup/kernel_load"):
+        lib = ctypes.CDLL(lib_path)
+    return lib, BuildInfo(lib_path, seconds, log)
 
 
 class CudaKernel:

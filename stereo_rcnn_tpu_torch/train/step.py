@@ -14,10 +14,11 @@ no epsilon; then per :func:`param_label` partition: "frozen" unchanged,
 ``optax.sgd(schedule, momentum)``: ``m = g + momentum * m``,
 ``p -= lr(count) * m``, and the step schedule decays the rate by gamma once
 ``count >= lr_decay_step * steps_per_epoch``.  Parameters and momentum are
-updated in place.  The step's three parts are ``torch.profiler`` ranges
-(``train/losses``, ``train/backward``, ``train/optimizer``); a
-data-parallel step (``parallel.data_parallel_train_step``) adds
-``train/all_reduce`` between the last two.
+updated in place.  The step's three parts are spans of
+``utils.profiling`` (``train/losses``, ``train/backward``,
+``train/optimizer``); a data-parallel step
+(``parallel.data_parallel_train_step``) adds ``train/all_reduce`` between
+the last two.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ import dataclasses
 from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from stereo_rcnn_tpu_torch.config import Config
 from stereo_rcnn_tpu_torch.device import resolve_device
@@ -42,6 +42,7 @@ from stereo_rcnn_tpu_torch.train.targets import (GroundTruth, Uniforms,
                                                  draw_uniforms,
                                                  ground_truth_to_torch,
                                                  proposal_targets)
+from stereo_rcnn_tpu_torch.utils.profiling import span
 
 
 class Batch(NamedTuple):
@@ -281,16 +282,16 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000,
         params = trainable_params(state)
         for p in params.values():
             p.grad = None
-        with record_function("train/losses"):
+        with span("train/losses"):
             losses = compute_losses(state.model, batch, cfg, generator,
                                     uniforms, rows)
             total = combine_with_uncertainty(losses, state.uncert)
-        with record_function("train/backward"):
+        with span("train/backward"):
             total.backward()
         if reduce_grads is not None:
-            with record_function("train/all_reduce"):
+            with span("train/all_reduce"):
                 reduce_grads(params)
-        with record_function("train/optimizer"):
+        with span("train/optimizer"):
             g_norm = update(params, state.trace, state.step)
         metrics = {**{k: v.detach() for k, v in losses.items()},
                    "total": total.detach(),
