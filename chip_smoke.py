@@ -10,12 +10,13 @@ the CUDA toolkit (``nvcc``).  Phases, each raising on failure:
 
 1. environment: torch / CUDA versions, the card's name and power limit,
    TF32 off for matmuls and convolutions;
-2. build the four kernels, one ``nvcc`` per source, started together: K1
+2. build the five kernels, one ``nvcc`` per source, started together: K1
    the fused stereo RoIAlign in its five sampling-weight modes
    (csrc/stereo_roi_align.cu), K2 its backward
    (csrc/stereo_roi_align_bwd.cu), K3 the windowed one-sided RoIAlign
-   (csrc/roi_align_window.cu) and K4 the atlas variant
-   (csrc/stereo_roi_align_atlas.cu);
+   (csrc/roi_align_window.cu), K4 the atlas variant
+   (csrc/stereo_roi_align_atlas.cu) and K5 the Gauss-Newton 3D solve
+   (csrc/box_solve.cu);
 3. K1 in each mode (f32, kron_bf16, kron_hilo, and the tool-only
    two-matmul modes bf16 and hilo) against its plain PyTorch version at
    the level shapes of both paths (1280x384, C=256; 300 rois for
@@ -38,15 +39,20 @@ the CUDA toolkit (``nvcc``).  Phases, each raising on failure:
    timed beside a store-only floor (the three outputs zeroed), its atlas
    packing timed apart; at C=255 (1-channel lanes, timed at batch 16) and
    C=2056 (beyond one pass of its 256 lanes x 8 channels, timed at batch
-   2) against its plain version at batch 2;
+   2) against its plain version at batch 2; then K5 against the plain
+   loop it fuses on well-posed detections at the pipeline's N = 512
+   (batch 16) and N = 32 (batch 1), z free and fixed, timed beside it,
+   flagged (without raising) where its outputs lose the loop's bits;
 7. the inference path, ``make_full_pipeline`` at full width (ResNet-101,
    FPN 256, fc 2048, 1280x384, bf16; one random model from seed 0 and
    rendered scenes, seed 7, 5 objects, reused) in three configurations,
    each at batch 16 and batch 1 with launch counts, shape and finiteness
    checks: ``bench.py``'s program (``roi_align_impl="pallas"``,
    ``kron_bf16``), ``Config()`` itself (``"xla"``, the atlas gather: no
-   kernel launch) and the fused kernel with f32 weights; the plain
-   RoIAlign versions must not run; then pairs/s at batch 16 and p50 at
+   kernel launch) and the fused kernel with f32 weights; each call must
+   launch K5 twice (the solve and the z-fixed re-solve), and the plain
+   RoIAlign versions and the plain solve loop must not run; then pairs/s
+   at batch 16 and p50 at
    batch 1 of each, timed in two turns (in order, then reversed), the
    time of each stage, and the RoIAlign stage alone at batch 16 on the
    real backbone output (gather, K1 f32, K1 kron_bf16); K1 against its
@@ -148,7 +154,7 @@ Without a CUDA device it exits non-zero and prints no result.
     python3 chip_smoke.py --digests PATH
 
 also writes to PATH a JSON object of the sha256 of every output of K1,
-K2, K3 and K4 that phases 3 to 6 check, keyed by kernel, mode and shape:
+K2, K3, K4 and K5 that phases 3 to 6 check, keyed by kernel, mode and shape:
 two builds that give the same file give the same bits on these inputs
 (the inputs come from a seeded generator).  The file is written before
 phase 7.
@@ -233,6 +239,10 @@ MULTICLASS_STEPS = 2
 PERF_TOOL_ITERS = 3
 # H100 SXM device-memory rate (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
+# K5 vs the plain loop on well-posed detections (m, rad, px): the kernel
+# repeats the loop's float32 operations in its order (the same bits on an
+# H100), so only rounding that the solve damps may part them.
+TOL_SOLVE = 1e-3
 
 
 def upstream_state_dict(model) -> dict:
@@ -364,22 +374,26 @@ def _counting(module, name, counts):
 
 
 class _PlainCalls:
-    """Counts the calls of the plain RoIAlign versions while active."""
+    """Counts the calls of the plain versions of the kernels while active:
+    the RoIAlign's (``ops.stereo_roi_align``) and, where the solve module
+    is given too, the solve's (``solve.box_estimator``)."""
 
-    NAMES = ("stereo_roi_align_packed_ref", "stereo_roi_align_packed_bwd_ref")
+    NAMES = ("stereo_roi_align_packed_ref", "stereo_roi_align_packed_bwd_ref",
+             "solve_batch_ref")
 
-    def __init__(self, module):
-        self.module = module
+    def __init__(self, *modules):
+        self.modules = modules
         self.calls = {}
 
     def __enter__(self):
-        self.originals = {n: _counting(self.module, n, self.calls)
-                          for n in self.NAMES}
+        self.originals = [(m, n, _counting(m, n, self.calls))
+                          for m in self.modules for n in self.NAMES
+                          if hasattr(m, n)]
         return self.calls
 
     def __exit__(self, *exc):
-        for name, fn in self.originals.items():
-            setattr(self.module, name, fn)
+        for module, name, fn in self.originals:
+            setattr(module, name, fn)
 
 
 def _k1_error(out, ref, hat, feats):
@@ -868,6 +882,72 @@ def check_k4(sra, dev, gen, card, digests=None):
             **_k4_any_c(sra, k4, dev, card, digests)}
 
 
+def _solve_inputs(n, dev, seed):
+    """:func:`synthetic_solve_inputs` on the card: ``(args, obs_weights,
+    fixed_z, well_posed)``, ``fixed_z`` the cars' depth + 0.3 m."""
+    from stereo_rcnn_tpu_torch.data.synthetic import synthetic_solve_inputs
+    from stereo_rcnn_tpu_torch.geometry.calib import StereoCalib
+    d = {k: torch.from_numpy(v).to(dev)
+         for k, v in synthetic_solve_inputs(n, seed).items()}
+    calib = StereoCalib(*d["calib"].T.contiguous(), None, None)
+    args = (d["obs"], d["dims_hwl"], d["alpha"], d["kpt_idx"], calib)
+    return args, d["obs_weights"], d["depth"] + 0.3, d["well_posed"]
+
+
+def check_k5(dev, card, digests=None):
+    """Phase 6, end: K5 against the plain loop on the card at N = 512 and
+    32, z free and fixed, ``Config()``'s 30 iterations; timed beside it.
+    ``digests`` (a dict or None) takes the sha256 of every output.  Raises
+    beyond :data:`TOL_SOLVE` on the well-posed rows or where finiteness
+    differs; flags, without raising, a case whose outputs are not all the
+    plain loop's bits: the benchmark's ``solve_px`` and ``align_rel``
+    limits were set from runs in which the two gave the same bits."""
+    from stereo_rcnn_tpu_torch.solve import box_estimator as be
+    err, res, lost = 0.0, {}, []
+    for n in (512, 32):
+        args, w, z, well = _solve_inputs(n, dev, seed=n)
+        for fixed in (None, z):
+            def solve(fn=be.solve_batch):
+                return fn(*args, obs_weights=w, fixed_z=fixed)
+            got = solve()
+            torch.cuda.synchronize()
+            ref = solve(be.solve_batch_ref)
+            same = total = 0
+            for a, b in zip(got, ref):
+                if not torch.equal(a.isfinite(), b.isfinite()):
+                    raise RuntimeError(f"K5 N={n}: finiteness differs from "
+                                       "the plain loop's")
+                err = max(err, (a[well] - b[well]).abs().max().item())
+                same += int((a == b).sum())
+                total += a.numel()
+            if not err <= TOL_SOLVE:
+                raise RuntimeError(f"K5 N={n}: max abs err {err:.3e} > "
+                                   f"{TOL_SOLVE:.0e}")
+            tag = "fixed z" if fixed is not None else "free z"
+            if digests is not None:
+                for name, a in zip(got._fields, got):
+                    digests[f"K5 {name} N={n} {tag}"] = _sha256(a)
+            us = 1e3 * _device_ms(solve, 20, "gauss_newton_solve_kernel")
+            call_us = 1e3 * _events_ms(solve, 20)
+            plain_ms = _events_ms(lambda: solve(be.solve_batch_ref), 3)
+            case = f"N={n} {tag}"
+            res[case] = {"us": us, "call_us": call_us, "plain_ms": plain_ms,
+                         "same_bits": same / total}
+            print(f"K5 {case}: max abs err so far {err:.3e} (tol "
+                  f"{TOL_SOLVE:.0e}, {int(well.sum())} well-posed rows of "
+                  f"{n}), {same}/{total} outputs the plain loop's bits; "
+                  f"kernel {us:.1f} us (device; {call_us:.1f} us per call), "
+                  f"plain loop {plain_ms:.2f} ms  [{card}]", flush=True)
+            if same < total:
+                lost.append(case)
+                print(f"K5 FLAG {case}: {total - same} of {total} outputs "
+                      "differ from the plain loop's bits; the benchmark's "
+                      "solve_px and align_rel limits were set from runs "
+                      "that gave the same bits (PERF.md, open questions)",
+                      flush=True)
+    return {"max_abs_err": err, "bits_lost": lost, "by_case": res}
+
+
 def _k4_any_c(sra, k4, dev, card, digests):
     """K4 at an odd C (1-channel lanes) and at a C beyond one pass of its
     lanes, against its plain version at batch 2 (bf16 and float32); the
@@ -999,7 +1079,10 @@ def inference(sra, dev, card):
     from stereo_rcnn_tpu_torch.models.detector import roi_features
     from stereo_rcnn_tpu_torch.models.stereo_rpn import select_proposals
 
+    from stereo_rcnn_tpu_torch.solve import box_estimator as be
+
     k1, k2 = sra.stereo_roi_align_kernel, sra.stereo_roi_align_bwd_kernel
+    k5 = be.gauss_newton_solve_kernel
     base = Config()
 
     def rcnn(impl, hat):
@@ -1027,15 +1110,19 @@ def inference(sra, dev, card):
         fused = cfg.rcnn.roi_align_impl == "pallas"
         k1.reset_counts()
         k2.reset_counts()
-        with _PlainCalls(sra) as plain:
+        with _PlainCalls(sra, be) as plain:
             n_det = {}
             for b in (16, 1):
-                before = k1.launches
+                before = k1.launches, k5.launches
                 out = fn(model, left[:b], right[:b])
                 torch.cuda.synchronize()
-                if (k1.launches > before) != fused:
+                if (k1.launches > before[0]) != fused:
                     raise RuntimeError(f"{name}, batch {b}: K1 launches "
-                                       f"{k1.launches - before}")
+                                       f"{k1.launches - before[0]}")
+                # The solve, then the z-fixed re-solve: one K5 launch each.
+                if k5.launches != before[1] + 2:
+                    raise RuntimeError(f"{name}, batch {b}: K5 launches "
+                                       f"{k5.launches - before[1]}, not 2")
                 n_det[b] = _check_detections(out, b, d)
         if n_det[16] == 0:
             raise RuntimeError(f"{name}: no detections at batch 16")
@@ -1045,13 +1132,13 @@ def inference(sra, dev, card):
                                f"versions {plain}")
         print(f"inference {name}: n_det {n_det[16]} of {16 * d} at batch 16,"
               f" {n_det[1]} of {d} at batch 1, finite; K1 launches "
-              f"{launches[name][0]}, K2 0, plain versions 0 calls",
-              flush=True)
+              f"{launches[name][0]}, K2 0, K5 2 a call, plain versions 0 "
+              "calls", flush=True)
 
     # Timed in turns, the configurations in order and then reversed: the
     # host-bound stages vary from call to call.
     results = {name: [] for name in configs}
-    with _PlainCalls(sra) as plain:
+    with _PlainCalls(sra, be) as plain:
         for name in list(configs) + list(reversed(configs)):
             cfg = configs[name]
             model.cfg = cfg
@@ -1480,6 +1567,7 @@ def serving(sra, dev, card, work):
     from stereo_rcnn_tpu_torch.geometry.calib import default_kitti_calib
     from stereo_rcnn_tpu_torch.inference import make_full_pipeline
     from stereo_rcnn_tpu_torch.models.detector import build_model
+    from stereo_rcnn_tpu_torch.solve import box_estimator as be
     from stereo_rcnn_tpu_torch.tools import (calibrate_norm, demo, diag_3d,
                                              export_model, serve)
     from stereo_rcnn_tpu_torch.train.checkpoint import (PARAMS_FILE,
@@ -1619,7 +1707,7 @@ def serving(sra, dev, card, work):
                              cfg.data.image_w, cfg.backbone.pixel_means_bgr,
                              dev)[:4]
     eager = make_full_pipeline(cfg)
-    with _PlainCalls(sra) as plain:
+    with _PlainCalls(sra, be) as plain:
         ours = pipe(*batch)
         ref = eager(model, *batch)
         # Mean ms per call over RATIO_CALLS calls, in RATIO_TURNS
@@ -2104,6 +2192,7 @@ def multiclass(sra, dev, card):
     from stereo_rcnn_tpu_torch.geometry.calib import default_kitti_calib
     from stereo_rcnn_tpu_torch.inference import make_full_pipeline
     from stereo_rcnn_tpu_torch.models.detector import init_params
+    from stereo_rcnn_tpu_torch.solve import box_estimator as be
     from stereo_rcnn_tpu_torch.tools import test_net, train
     from stereo_rcnn_tpu_torch.train import (Batch, init_train_state,
                                              make_train_step)
@@ -2173,7 +2262,7 @@ def multiclass(sra, dev, card):
     fn = make_full_pipeline(cfg, calib)
     k1.reset_counts()
     k2.reset_counts()
-    with _PlainCalls(sra) as plain:
+    with _PlainCalls(sra, be) as plain:
         out = fn(model, left, right)
         torch.cuda.synchronize()
     launches["inference"] = counts()
@@ -2350,11 +2439,13 @@ def main(argv=None) -> int:
     from stereo_rcnn_tpu_torch.ops import roi_align_window as win
     from stereo_rcnn_tpu_torch.ops import stereo_roi_align as sra
     from stereo_rcnn_tpu_torch.ops.cuda_build import load_kernels
+    from stereo_rcnn_tpu_torch.solve import box_estimator as be
 
     t_start = time.perf_counter()
     phase_s = {}
     kernels = (sra.stereo_roi_align_kernel, sra.stereo_roi_align_bwd_kernel,
-               win.roi_align_window_kernel, sra.stereo_roi_align_atlas_kernel)
+               win.roi_align_window_kernel, sra.stereo_roi_align_atlas_kernel,
+               be.gauss_newton_solve_kernel)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2369,9 +2460,14 @@ def main(argv=None) -> int:
     print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}  "
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
 
+    # K5's launches by phase, from a count reset as each phase starts.
+    k5_by_phase = {}
+
     def phase(name, fn, *args):
         t0 = time.perf_counter()
+        be.gauss_newton_solve_kernel.reset_counts()
         res = fn(*args)
+        k5_by_phase[name] = be.gauss_newton_solve_kernel.launches
         phase_s[name] = time.perf_counter() - t0
         print(f"[phase {name}: {phase_s[name]:.1f} s]", flush=True)
         return res
@@ -2396,6 +2492,7 @@ def main(argv=None) -> int:
     k2 = phase("K2", check_k2, sra, dev, gen, card, digests)
     k3 = phase("K3", check_k3, dev, gen, card, digests)
     k4 = phase("K4", check_k4, sra, dev, gen, card, digests)
+    k5 = phase("K5", check_k5, dev, card, digests)
     if digests is not None:
         with open(args.digests, "w") as f:
             json.dump(digests, f, indent=1, sort_keys=True)
@@ -2474,6 +2571,18 @@ def main(argv=None) -> int:
         "replaces": "stereo_rcnn_tpu/ops/roi_align_pallas.py:618",
         "launches": tool_k4, "launches_by_path": {"bench_roialign": tool_k4},
         **k4, "bound_by": "bytes", "library_ms": None})
+    k5_paths = {name: n for name, n in k5_by_phase.items() if n}
+    if not (k5_by_phase["K5"] and k5_by_phase["inference"]):
+        raise RuntimeError(f"K5 launches by phase {k5_by_phase}: none in "
+                           "its check or in the inference phase")
+    entries.append({
+        "name": "gauss_newton_solve", "route": "cuda",
+        "source": "stereo_rcnn_tpu_torch/csrc/box_solve.cu",
+        "replaces": "no Pallas kernel: stereo_rcnn_tpu/solve/"
+                    "box_estimator.py::solve_batch is XLA-compiled jnp",
+        "launches": sum(k5_paths.values()), "launches_by_path": k5_paths,
+        **k5, "bound_by": "the serial chain of iterations",
+        "library_ms": None})
     for entry in entries:
         if not entry["launches"]:
             raise RuntimeError(f"{entry['name']} was launched on no path")

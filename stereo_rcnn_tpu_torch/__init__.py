@@ -5,8 +5,11 @@ counterpart's path and public names.  Every Pallas kernel of the JAX
 package is a hand-written CUDA kernel here (``csrc/``): the fused stereo
 RoIAlign in each sampling-weight mode (K1) and its backward (K2), the
 windowed one-sided RoIAlign (K3) and the atlas variant (K4); each runs on
-the card and as its plain PyTorch version on the CPU.  The atlas gather
-RoIAlign (``ops.roi_align``) is plain torch.  Nothing here imports JAX.
+the card and as its plain PyTorch version on the CPU.  The Gauss-Newton 3D
+solve, XLA-compiled ``jnp`` in the JAX package, is one kernel on the card
+too (K5, ``solve.box_estimator``) and its plain loop on the CPU.  The
+atlas gather RoIAlign (``ops.roi_align``) is plain torch.  Nothing here
+imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -406,3 +406,58 @@ def synthetic_images(cfg: Config, batch: int, seed: int = 0,
     """The image pairs and calibration of :func:`synthetic_batch`."""
     il, ir, _, calib = synthetic_batch(cfg, batch, seed, n_objects)
     return il, ir, calib
+
+
+def synthetic_solve_inputs(n: int, seed: int, edge_rows: bool = False
+                           ) -> dict:
+    """``n`` detections of cars in front of the nominal KITTI rig scaled to
+    1280x384, as :func:`stereo_rcnn_tpu_torch.solve.solve_batch` takes
+    them (numpy): each row's boxes, perspective keypoint and viewpoint are
+    those of a 3D box plus 0.3 px of noise, and about 10 % of the
+    observations are dropped by their weights.  With ``edge_rows``, rows 0
+    and 1 are exact and keep every observation: row 0 is a car at x = 0 and
+    yaw 0 seen by a camera with cu = tx2 = 0 (its initial yaw is exactly
+    0, where corners tie), row 1 lies below the z floor (a disparity of
+    2000 px puts its initial depth at 0.2 m, and its corners behind the
+    projection's 1e-3 floor).
+
+    Keys: ``obs``, ``obs_weights`` [n, 7], ``dims_hwl`` [n, 3], ``alpha``
+    [n], ``kpt_idx`` [n] int32, ``calib`` [n, 5] (f, cu, cv, baseline,
+    tx2), ``depth`` [n] (the cars' z) and ``well_posed`` [n] bool: the rows
+    that keep at least 5 of their 7 observations, row 1 of the edge rows
+    excepted."""
+    rng = np.random.RandomState(seed)
+    rig = default_kitti_calib().scale(min(1280 / 1242.0, 384 / 375.0))
+    cal = np.tile(np.float32([rig.f, rig.cu, rig.cv, rig.baseline, rig.tx2]),
+                  (n, 1))
+    edge = 2 if edge_rows else 0
+    if edge_rows:
+        cal[0, [1, 4]] = 0.0
+    rows = []
+    for i in range(n):
+        z = rng.uniform(8.0, 40.0)
+        x = 0.0 if edge and i == 0 else rng.uniform(-0.35, 0.35) * z
+        dims = np.float32([rng.uniform(1.4, 1.7), rng.uniform(1.5, 1.9),
+                           rng.uniform(3.5, 4.8)])
+        ry = 0.0 if edge and i == 0 else rng.uniform(-np.pi, np.pi)
+        corners = _all_corners_cam(np.array([x, 1.65, z]), dims, ry)
+        cam = StereoCalib(*cal[i], None, None)
+        uv_l = _project_np(corners, cam)
+        uv_r = _project_np(corners, cam, right=True)
+        k = int(np.argmin(corners[:4, 2]))
+        rows.append(np.concatenate([
+            [uv_l[:, 0].min(), uv_l[:, 1].min(), uv_l[:, 0].max(),
+             uv_l[:, 1].max(), uv_r[:, 0].min(), uv_r[:, 0].max(),
+             uv_l[k, 0]], dims, [ry - np.arctan2(x, z), k, z]]))
+    d = np.float32(rows)
+    d[edge:, :7] += rng.randn(n - edge, 7).astype(np.float32) * 0.3
+    w = np.float32(rng.uniform(size=(n, 7)) > 0.1)
+    w[:edge] = 1.0
+    well_posed = (w == 0).sum(1) <= 2
+    if edge_rows:
+        d[1, [4, 5]] = d[1, [0, 2]] - 2000.0
+        well_posed[1] = False
+    out = dict(obs=d[:, :7], obs_weights=w, dims_hwl=d[:, 7:10],
+               alpha=d[:, 10], kpt_idx=d[:, 11].astype(np.int32), calib=cal,
+               depth=d[:, 12], well_posed=well_posed)
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}

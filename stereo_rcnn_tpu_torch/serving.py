@@ -5,10 +5,13 @@ Port of ``stereo_rcnn_tpu.serving``.  :func:`export_pipeline` traces
 alignment) into one ``torch.export`` program and returns it as bytes; a
 serving process needs only :func:`load_pipeline`, which builds no model:
 the program is the model.  The fused stereo RoIAlign
-is the registered op ``stereo_rcnn_tpu_torch::stereo_roi_align_fwd``,
-kept as one graph node that dispatches by device at run time (K1 on the
-card, its plain version on the CPU); importing ``ops.stereo_roi_align``
-registers it, which this module does before ``torch.export.load``.
+and the Gauss-Newton 3D solve are the registered ops
+``stereo_rcnn_tpu_torch::stereo_roi_align_fwd`` and
+``stereo_rcnn_tpu_torch::gauss_newton_solve``, each call kept as one
+graph node that dispatches by device at run time (K1 and K5 on the card,
+their plain versions on the CPU); importing ``ops.stereo_roi_align`` and
+``solve.box_estimator`` registers them, which this module does before
+``torch.export.load``.
 
 Differences from the JAX artifact:
 
@@ -40,9 +43,10 @@ import zipfile
 import torch
 
 from stereo_rcnn_tpu_torch.geometry.calib import StereoCalib
-# Registers stereo_rcnn_tpu_torch::stereo_roi_align_fwd, which the loaded
-# program calls.
+# Register stereo_rcnn_tpu_torch::stereo_roi_align_fwd and ::
+# gauss_newton_solve, which the loaded program calls.
 from stereo_rcnn_tpu_torch.ops import stereo_roi_align  # noqa: F401
+from stereo_rcnn_tpu_torch.solve import box_estimator  # noqa: F401
 
 FORMAT = "stereo_rcnn_tpu_torch.manifest"
 _MANIFEST = "manifest.json"

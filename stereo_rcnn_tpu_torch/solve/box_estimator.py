@@ -11,11 +11,19 @@ min/max derivative is shared among tied corners, as both frameworks'
 JVPs share it).  The 4x4 normal equations are solved by an unrolled
 Cholesky, each step is clipped to ``max_step`` and z is floored at 0.5.
 
+:func:`solve_batch` is the registered op ``stereo_rcnn_tpu_torch::
+gauss_newton_solve`` (one graph node under ``torch.export``), which
+dispatches by device: a CUDA tensor launches K5 (``csrc/box_solve.cu``,
+:data:`gauss_newton_solve_kernel`), the whole solve in one launch, or
+raises; a CPU tensor runs :func:`solve_batch_ref`, the plain loop, which
+the kernel is held to.
+
 ``calib`` fields are per-detection ``[N]`` tensors (or numbers).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -24,6 +32,7 @@ from stereo_rcnn_tpu_torch.geometry.calib import StereoCalib
 from stereo_rcnn_tpu_torch.geometry.projection import (_CORNERS_X,
                                                        _CORNERS_Z,
                                                        box3d_corners, project)
+from stereo_rcnn_tpu_torch.ops.cuda_build import CudaKernel
 
 
 class SolveResult(NamedTuple):
@@ -141,13 +150,14 @@ def _solve_spd4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x, dim=-1)
 
 
-def solve_batch(obs: torch.Tensor, dims_hwl: torch.Tensor,
-                alpha: torch.Tensor, kpt_idx: torch.Tensor,
-                calib: StereoCalib, obs_weights: torch.Tensor | None = None,
-                iters: int = 30, damping: float = 1e-3,
-                fixed_z: torch.Tensor | None = None) -> SolveResult:
-    """Solve [N] detections' poses; ``fixed_z`` freezes z (the re-solve
-    after dense alignment)."""
+def solve_batch_ref(obs: torch.Tensor, dims_hwl: torch.Tensor,
+                    alpha: torch.Tensor, kpt_idx: torch.Tensor,
+                    calib: StereoCalib,
+                    obs_weights: torch.Tensor | None = None,
+                    iters: int = 30, damping: float = 1e-3,
+                    fixed_z: torch.Tensor | None = None) -> SolveResult:
+    """The plain loop of :func:`solve_batch`: its CPU path, and what K5 is
+    held to."""
     nd = obs.shape[0]
     dev = obs.device
     if obs_weights is None:
@@ -183,6 +193,126 @@ def solve_batch(obs: torch.Tensor, dims_hwl: torch.Tensor,
     r = residual(state)[0]
     return SolveResult(position=state[:, :3], theta=state[:, 3],
                        residual=torch.sqrt(torch.mean(r ** 2, dim=-1)))
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+class GaussNewtonSolveKernel(CudaKernel):
+    """K5: ``gauss_newton_solve``, the whole of :func:`solve_batch_ref` in
+    one launch, one thread per detection."""
+
+    source = "box_solve.cu"
+    symbol = "gauss_newton_solve"
+    argtypes = [_P] * 14 + [_I, _I, ctypes.c_float, _P]
+
+    def __call__(self, obs, obs_weights, dims_hwl, alpha, kpt_idx, f, cu, cv,
+                 baseline, tx2, fixed_z, iters: int, damping: float):
+        """``(position [N, 3], theta [N], residual [N])`` float32 for
+        contiguous float32 ``obs`` and ``obs_weights`` [N, 7], ``dims_hwl``
+        [N, 3], ``alpha``, the five calibration fields and ``fixed_z``
+        (or None) [N], and int32 ``kpt_idx`` [N], all on one card."""
+        fn = self.load()
+        n = obs.shape[0]
+        dev = obs.device
+        if iters < 0:
+            raise ValueError(f"iters must be >= 0, got {iters}")
+        args = dict(obs=obs, obs_weights=obs_weights, dims_hwl=dims_hwl,
+                    alpha=alpha, kpt_idx=kpt_idx, f=f, cu=cu, cv=cv,
+                    baseline=baseline, tx2=tx2, fixed_z=fixed_z)
+        shapes = dict(obs=(n, 7), obs_weights=(n, 7), dims_hwl=(n, 3))
+        for name, t in args.items():
+            if t is None:           # fixed_z: z is free
+                continue
+            shape = shapes.get(name, (n,))
+            dtype = torch.int32 if name == "kpt_idx" else torch.float32
+            if (t.shape != shape or t.dtype != dtype or t.device != dev or
+                    not t.is_contiguous()):
+                raise ValueError(f"{name} must be contiguous {dtype} "
+                                 f"{list(shape)} on {dev}, got {t.dtype} "
+                                 f"{list(t.shape)} on {t.device}")
+        position = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        theta = torch.empty((n,), dtype=torch.float32, device=dev)
+        residual = torch.empty((n,), dtype=torch.float32, device=dev)
+        if n == 0:
+            return position, theta, residual
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(*[None if t is None else t.data_ptr()
+                       for t in args.values()],
+                     position.data_ptr(), theta.data_ptr(),
+                     residual.data_ptr(), n, iters, damping, stream)
+        self._launched(err)
+        return position, theta, residual
+
+
+gauss_newton_solve_kernel = GaussNewtonSolveKernel()
+
+
+# The solve as a registered op, so that ``torch.export`` keeps it as one
+# graph node rather than its loop unrolled; at run time the node
+# dispatches by device: CUDA tensors to K5, CPU tensors to the plain loop
+# (looked up by name at each call), other devices raise.
+@torch.library.custom_op(
+    "stereo_rcnn_tpu_torch::gauss_newton_solve", mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor obs, Tensor obs_weights, Tensor dims_hwl, Tensor alpha, "
+           "Tensor kpt_idx, Tensor f, Tensor cu, Tensor cv, Tensor baseline, "
+           "Tensor tx2, Tensor? fixed_z, int iters, float damping) -> "
+           "(Tensor, Tensor, Tensor)")
+def gauss_newton_solve(obs, obs_weights, dims_hwl, alpha, kpt_idx, f, cu, cv,
+                       baseline, tx2, fixed_z, iters, damping):
+    """``(position [N, 3], theta [N], residual [N])`` of
+    :func:`solve_batch_ref` (copies: an op's outputs may not alias)."""
+    res = solve_batch_ref(obs, dims_hwl, alpha, kpt_idx,
+                          StereoCalib(f, cu, cv, baseline, tx2, None, None),
+                          obs_weights, iters, damping, fixed_z)
+    return res.position.clone(), res.theta.clone(), res.residual
+
+
+@gauss_newton_solve.register_kernel("cuda")
+def _gauss_newton_solve_cuda(obs, obs_weights, dims_hwl, alpha, kpt_idx, f,
+                             cu, cv, baseline, tx2, fixed_z, iters, damping):
+    return gauss_newton_solve_kernel(obs, obs_weights, dims_hwl, alpha,
+                                     kpt_idx, f, cu, cv, baseline, tx2,
+                                     fixed_z, iters, damping)
+
+
+@gauss_newton_solve.register_fake
+def _gauss_newton_solve_fake(obs, obs_weights, dims_hwl, alpha, kpt_idx, f,
+                             cu, cv, baseline, tx2, fixed_z, iters, damping):
+    n = obs.shape[0]
+    return (obs.new_empty((n, 3)), obs.new_empty((n,)),
+            obs.new_empty((n,)))
+
+
+def solve_batch(obs: torch.Tensor, dims_hwl: torch.Tensor,
+                alpha: torch.Tensor, kpt_idx: torch.Tensor,
+                calib: StereoCalib, obs_weights: torch.Tensor | None = None,
+                iters: int = 30, damping: float = 1e-3,
+                fixed_z: torch.Tensor | None = None) -> SolveResult:
+    """Solve [N] detections' poses in float32; ``fixed_z`` freezes z (the
+    re-solve after dense alignment).  One launch of K5 on CUDA tensors, the
+    plain loop on CPU tensors."""
+    nd = obs.shape[0]
+    dev = obs.device
+
+    def f32(x):
+        return x.to(dev, torch.float32).contiguous()
+
+    def per_det(v):             # a calibration field: [N], 0-d or a number
+        if torch.is_tensor(v):
+            return f32(v.expand(nd))
+        return torch.full((nd,), float(v), device=dev)
+
+    if obs_weights is None:
+        obs_weights = torch.ones((nd, 7), device=dev)
+    return SolveResult(*torch.ops.stereo_rcnn_tpu_torch.gauss_newton_solve(
+        f32(obs), f32(obs_weights), f32(dims_hwl), f32(alpha),
+        kpt_idx.to(dev, torch.int32).contiguous(),
+        *[per_det(v) for v in calib[:5]],
+        None if fixed_z is None else f32(fixed_z), iters, damping))
 
 
 def solve_pose(obs: torch.Tensor, dims_hwl: torch.Tensor, alpha, kpt_idx,

@@ -9,7 +9,8 @@ K2 takes 8-channel lanes where C % 4 == 0 and 2-channel lanes at any other
 even C: it is checked at C = 34 too.  Every kernel takes an odd C through
 1-channel lanes (checked at C = 35, K2 at C = 33), which give the bits of
 the wider lanes; K4 also takes a C beyond one pass of its 256 lanes x 8
-channels (C = 2056).
+channels (C = 2056).  K5, the Gauss-Newton 3D solve, against the plain
+loop it fuses, at the pipeline's N = 512 and N = 32.
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  The file imports no JAX, so it runs on
 a machine without it:
@@ -20,7 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+from stereo_rcnn_tpu_torch.data.synthetic import synthetic_solve_inputs
+from stereo_rcnn_tpu_torch.geometry.calib import StereoCalib
 from stereo_rcnn_tpu_torch.ops import stereo_roi_align as t_sra
+from stereo_rcnn_tpu_torch.solve import box_estimator as t_box
 
 STRIDES = (4, 8, 16, 32)
 
@@ -394,3 +398,74 @@ def test_k4_cuda_kernel_matches_plain(dtype, c):
         torch.testing.assert_close(o.reshape(b, r, -1, c),
                                    packed[:, :, rows], atol=1e-4, rtol=0)
     assert all(o[0, 2].abs().max().item() == 0.0 for o in out)
+
+
+def _solve_inputs(n, seed):
+    """:func:`synthetic_solve_inputs` with its edge rows (a yaw-0 row
+    whose corners tie, a row below the z floor), on the card:
+    ``(args, kwargs, well_posed)``."""
+    d = {k: torch.from_numpy(v).cuda()
+         for k, v in synthetic_solve_inputs(n, seed, edge_rows=True).items()}
+    calib = StereoCalib(*d["calib"].T.contiguous(), None, None)
+    args = (d["obs"], d["dims_hwl"], d["alpha"], d["kpt_idx"], calib)
+    return args, dict(obs_weights=d["obs_weights"]), d["well_posed"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 32])
+@pytest.mark.parametrize("iters", [30, 20])
+@pytest.mark.parametrize("fixed", [False, True])
+def test_k5_matches_the_plain_loop(n, iters, fixed):
+    """K5 (one launch) against the plain loop on the card, at the
+    pipeline's N = 512 (batch 16) and N = 32 (batch 1), with z free and
+    fixed, at ``Config()``'s 30 iterations and the synthetic
+    configurations' 20: position, yaw and residual within 1e-3 m / rad /
+    px on the well-posed rows (the kernel repeats the loop's float32
+    operations in its order, so the two differ at most by rounding that
+    the solve damps), the same finiteness on every row.  With z fixed, row
+    1's is fixed at 0.2 m, so both floor it at 0.5 m after the first step
+    and keep it there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw, well = _solve_inputs(n, seed=n + iters)
+    if fixed:
+        z = np.random.RandomState(n).uniform(5.0, 40.0, n)
+        z[1] = 0.2
+        kw["fixed_z"] = torch.from_numpy(z.astype(np.float32)).cuda()
+    k5 = t_box.gauss_newton_solve_kernel
+    before = k5.launches
+    got = t_box.solve_batch(*args, iters=iters, **kw)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    ref = t_box.solve_batch_ref(*args, iters=iters, **kw)
+    for name, a, b in zip(got._fields, got, ref):
+        assert torch.equal(a.isfinite(), b.isfinite()), name
+        torch.testing.assert_close(a[well], b[well], atol=1e-3, rtol=0)
+    if fixed:
+        assert got.position[1, 2].item() == ref.position[1, 2].item() == 0.5
+
+
+@pytest.mark.cuda
+def test_k5_launches_twice_per_pipeline_call():
+    """``make_full_pipeline`` (the tiny config on the card) launches K5
+    exactly twice a call: the solve and the z-fixed re-solve."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from stereo_rcnn_tpu_torch.config import tiny_test_config
+    from stereo_rcnn_tpu_torch.data.synthetic import synthetic_images
+    from stereo_rcnn_tpu_torch.inference import (broadcast_calib,
+                                                 make_full_pipeline)
+    from stereo_rcnn_tpu_torch.models.detector import init_params
+    cfg = tiny_test_config()
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    il, ir, calib = synthetic_images(cfg, 2, seed=5, n_objects=2)
+    pipe = make_full_pipeline(cfg)
+    inputs = (torch.from_numpy(il).cuda(), torch.from_numpy(ir).cuda(),
+              broadcast_calib(calib, 2, "cuda"))
+    k5 = t_box.gauss_newton_solve_kernel
+    for _ in range(2):
+        before = k5.launches
+        out = pipe(model, *inputs)
+        torch.cuda.synchronize()
+        assert k5.launches == before + 2
+    assert out.position.isfinite().all()

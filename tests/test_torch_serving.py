@@ -36,12 +36,14 @@ from stereo_rcnn_tpu_torch.inference import (broadcast_calib,
                                              make_full_pipeline)
 from stereo_rcnn_tpu_torch.models.detector import init_params
 from stereo_rcnn_tpu_torch.ops import stereo_roi_align as t_sra
+from stereo_rcnn_tpu_torch.solve import box_estimator as t_box
 
 from tests.test_torch_pipeline import (BOX_SCALE, CLS_SCALE, RPN_BOX_SCALE,
                                        RPN_SCALE, _parity_cfg)
 
 BATCH = 2
 OP = torch.ops.stereo_rcnn_tpu_torch.stereo_roi_align_fwd.default
+SOLVE_OP = torch.ops.stereo_rcnn_tpu_torch.gauss_newton_solve.default
 
 
 @pytest.fixture(scope="module")
@@ -91,22 +93,33 @@ def test_round_trip_equals_live_pipeline(exported):
     _assert_equal(served, live)
 
 
-def test_exported_graph_holds_the_fused_roi_align_op(exported, monkeypatch):
-    """One node of the registered op (no decomposed RoIAlign), which on
-    CPU tensors calls the plain version, looked up at each call; no node
-    of the profiler (the stage spans are off while the export traces)."""
+@pytest.mark.parametrize("op", ["roi_align", "solve"])
+def test_exported_graph_holds_the_fused_roi_align_op(exported, monkeypatch,
+                                                     op):
+    """The registered ops as graph nodes (no decomposed RoIAlign, no
+    unrolled solver loop), which on CPU tensors call their plain versions,
+    looked up at each call: one node of the fused RoIAlign; two of the
+    Gauss-Newton solve, the solve and the z-fixed re-solve (the second
+    with ``fixed_z``).  No node of the profiler (the stage spans are off
+    while the export traces)."""
     graph = exported["pipe"].module.graph
+    target, module, plain, count = {
+        "roi_align": (OP, t_sra, "stereo_roi_align_packed_ref", 1),
+        "solve": (SOLVE_OP, t_box, "solve_batch_ref", 2)}[op]
     nodes = [n for n in graph.nodes
-             if n.op == "call_function" and n.target == OP]
-    assert len(nodes) == 1
+             if n.op == "call_function" and n.target == target]
+    assert len(nodes) == count
     assert not [n for n in graph.nodes if "profiler" in str(n.target)]
-    assert nodes[0].args[5] == "f32"
+    if op == "roi_align":
+        assert nodes[0].args[5] == "f32"
+    else:
+        assert [n.args[10] is None for n in nodes] == [True, False]
     calls = []
-    ref = t_sra.stereo_roi_align_packed_ref
-    monkeypatch.setattr(t_sra, "stereo_roi_align_packed_ref",
+    ref = getattr(module, plain)
+    monkeypatch.setattr(module, plain,
                         lambda *a: calls.append(1) or ref(*a))
     _run(exported["pipe"], exported)
-    assert len(calls) == 1
+    assert len(calls) == count
 
 
 def test_load_state_dict_swaps_the_weights(exported):

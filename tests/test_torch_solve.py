@@ -85,6 +85,86 @@ def test_solve_batch_matches(scene):
         assert np.abs(rt.position.numpy()[:, 2] - flat[:, 14]).max() < 2.0
 
 
+def _op_args(scene, fixed):
+    """The registered op's arguments for the scene's detections, as
+    ``solve_batch`` passes them, and ``solve_batch_ref``'s."""
+    calib, _, _, d = scene
+    flat = d.reshape(-1, d.shape[-1])
+    n = len(flat)
+    obs, dims, alpha = (torch.from_numpy(flat[:, :7]),
+                        torch.from_numpy(flat[:, 7:10]),
+                        torch.from_numpy(flat[:, 10]))
+    kidx = torch.from_numpy(flat[:, 11].astype(np.int32))
+    w = torch.ones((n, 7))
+    w[::3, 6] = 0.0                     # some keypoints dropped
+    cal = t_inf.broadcast_calib(calib, n, "cpu")
+    fz = torch.from_numpy(flat[:, 14] + 0.3) if fixed else None
+    op_args = (obs, w, dims, alpha, kidx, *cal[:5], fz, 20, 1e-3)
+    ref_args = (obs, dims, alpha, kidx, cal, w, 20, 1e-3, fz)
+    return op_args, ref_args
+
+
+@pytest.mark.parametrize("fixed", [False, True])
+def test_registered_op_gives_the_plain_loops_bits(scene, fixed):
+    """``stereo_rcnn_tpu_torch::gauss_newton_solve`` on CPU tensors, and
+    ``solve_batch`` through it, give ``solve_batch_ref``'s bits, with z
+    free and fixed."""
+    op_args, ref_args = _op_args(scene, fixed)
+    ref = t_box.solve_batch_ref(*ref_args)
+    got = torch.ops.stereo_rcnn_tpu_torch.gauss_newton_solve(*op_args)
+    via = t_box.solve_batch(*ref_args)
+    for a, b, c in zip(got, via, ref):
+        assert torch.equal(a, c) and torch.equal(b, c)
+
+
+def test_registered_op_fake_gives_shapes_and_dtypes(scene):
+    """The op's fake implementation (what ``torch.export`` traces) gives
+    the outputs' shapes and dtypes, and no data."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    op_args, _ = _op_args(scene, True)
+    real = torch.ops.stereo_rcnn_tpu_torch.gauss_newton_solve(*op_args)
+    with FakeTensorMode() as mode:
+        fake = torch.ops.stereo_rcnn_tpu_torch.gauss_newton_solve(
+            *[mode.from_tensor(a) if torch.is_tensor(a) else a
+              for a in op_args])
+    assert [(f.shape, f.dtype) for f in fake] == [
+        (r.shape, r.dtype) for r in real] == [
+        ((8, 3), torch.float32), ((8,), torch.float32),
+        ((8,), torch.float32)]
+
+
+def test_synthetic_solve_inputs_edge_rows():
+    """``synthetic_solve_inputs`` (the card's K5 checks take it): a seed
+    gives the same arrays; the edge rows keep every observation, row 0's
+    camera has cu = tx2 = 0 and row 1 a disparity of 2000 px; the
+    well-posed rows leave out row 1 and rows with more than 2 of 7
+    observations dropped; the plain loop floors row 1's fixed z of 0.2 m
+    at 0.5 m and its answer is finite."""
+    from stereo_rcnn_tpu_torch.data.synthetic import synthetic_solve_inputs
+    from stereo_rcnn_tpu_torch.geometry.calib import StereoCalib
+    d = synthetic_solve_inputs(64, 3, edge_rows=True)
+    again = synthetic_solve_inputs(64, 3, edge_rows=True)
+    assert all(np.array_equal(d[k], again[k]) for k in d)
+    assert (d["obs_weights"][:2] == 1).all()
+    assert (d["obs_weights"] == 0).any()
+    assert (d["calib"][0, [1, 4]] == 0).all()
+    np.testing.assert_allclose(d["obs"][1, [0, 2]] - d["obs"][1, [4, 5]],
+                               2000.0, rtol=1e-6)
+    dropped = (d["obs_weights"] == 0).sum(1)
+    expect = dropped <= 2
+    expect[1] = False
+    np.testing.assert_array_equal(d["well_posed"], expect)
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    z = t["depth"].clone()
+    z[1] = 0.2
+    res = t_box.solve_batch_ref(
+        t["obs"], t["dims_hwl"], t["alpha"], t["kpt_idx"],
+        StereoCalib(*t["calib"].T.contiguous(), None, None),
+        t["obs_weights"], fixed_z=z)
+    assert res.position[1, 2].item() == 0.5
+    assert all(r.isfinite().all() for r in res)
+
+
 def test_written_out_jacobian_matches_jvp(scene):
     """_observe_jac's Jacobian == four torch.func.jvp calls (the JAX
     package's formulation), including corners below the z floor."""
