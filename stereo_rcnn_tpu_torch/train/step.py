@@ -18,7 +18,11 @@ updated in place.  The step's three parts are spans of
 ``utils.profiling`` (``train/losses``, ``train/backward``,
 ``train/optimizer``); a data-parallel step
 (``parallel.data_parallel_train_step``) adds ``train/all_reduce`` between
-the last two.
+the last two.  Inside ``train/losses``: ``train/backbone``,
+``train/targets`` (anchors and their targets), ``train/rpn`` (the head and
+its losses), ``train/targets`` again (proposals and their targets),
+``train/roi_align`` and ``train/heads`` (the RCNN and keypoint heads and
+their losses).
 """
 
 from __future__ import annotations
@@ -180,7 +184,8 @@ def init_train_state(cfg: Config, generator: torch.Generator | None = None,
 def compute_losses(model: StereoRCNN, batch: Batch, cfg: Config,
                    generator: torch.Generator | None = None,
                    uniforms: Uniforms | None = None,
-                   rows: Tuple[int, int] | None = None
+                   rows: Tuple[int, int] | None = None,
+                   evidence: Dict[str, torch.Tensor] | None = None
                    ) -> Dict[str, torch.Tensor]:
     """All 6 losses averaged over the batch, and the mean foreground
     counts.  Target sampling draws from ``generator`` unless ``uniforms``
@@ -189,44 +194,63 @@ def compute_losses(model: StereoRCNN, batch: Batch, cfg: Config,
     generator's or ``uniforms``) are the global batch's, of which it takes
     its rows: a rank of a data-parallel step samples as one process at the
     global batch does (``jax.random.split(rng, 2 * b)`` over the global
-    ``b`` in the JAX package)."""
+    ``b`` in the JAX package).  ``evidence``, if given, gets the proposals
+    that fed :func:`proposal_targets` (``left``, ``right`` [B, N, 4] and
+    ``valid`` [B, N], detached) and the per-image foreground counts
+    (``num_fg_rpn``, ``num_fg_rcnn`` [B]), so that a check can repeat the
+    step on the same proposals."""
     b, im_h, im_w, _ = batch.images_left.shape
     dev = batch.images_left.device
     gt = batch.gt
 
-    feats = model.backbone(torch.cat([batch.images_left,
-                                      batch.images_right], dim=0))
-    feats_l = [f[:b] for f in feats]
-    feats_r = [f[b:] for f in feats]
-    logits, deltas = model.rpn(feats_l, feats_r)
+    with span("train/backbone"):
+        feats = model.backbone(torch.cat([batch.images_left,
+                                          batch.images_right], dim=0))
+        feats_l = [f[:b] for f in feats]
+        feats_r = [f[b:] for f in feats]
 
-    anchors = generate_anchors(cfg.anchors, im_h, im_w, cfg.box_off, dev)
-    start, total = (0, b) if rows is None else rows
-    if uniforms is None:
-        uniforms = draw_uniforms(
-            generator, total, anchors.shape[0],
-            cfg.rpn.train_post_nms_top_n + gt.left.shape[1], dev)
-    if total != b:
-        uniforms = Uniforms(*[u[start:start + b] for u in uniforms])
-    at = anchor_targets(anchors, gt, cfg.rpn, im_h, im_w, uniforms.anchor_fg,
-                        uniforms.anchor_bg, cfg.box_off)
-    rpn_l = rpn_losses(logits, deltas, at)
+    with span("train/targets"):
+        anchors = generate_anchors(cfg.anchors, im_h, im_w, cfg.box_off,
+                                   dev)
+        start, total = (0, b) if rows is None else rows
+        if uniforms is None:
+            uniforms = draw_uniforms(
+                generator, total, anchors.shape[0],
+                cfg.rpn.train_post_nms_top_n + gt.left.shape[1], dev)
+        if total != b:
+            uniforms = Uniforms(*[u[start:start + b] for u in uniforms])
+        at = anchor_targets(anchors, gt, cfg.rpn, im_h, im_w,
+                            uniforms.anchor_fg, uniforms.anchor_bg,
+                            cfg.box_off)
 
-    # Proposals feed the second stage as constants (no grad through boxes).
-    props = select_proposals(logits.detach(), deltas.detach(), anchors,
-                             im_h, im_w, cfg.rpn, True, cfg.box_off)
-    rt = proposal_targets(props.left, props.right, props.valid, gt,
-                          cfg.rcnn, uniforms.roi_fg, uniforms.roi_bg,
-                          uniforms.roi_take, cfg.box_off)
+    with span("train/rpn"):
+        logits, deltas = model.rpn(feats_l, feats_r)
+        rpn_l = rpn_losses(logits, deltas, at)
 
-    pooled = roi_features(model, feats_l, feats_r, rt.rois_left,
-                          rt.rois_right)
-    outs = model.heads(pooled["concat"])
-    kpt_logits = model.keypoints(pooled["left_kpt"])
-    s = cfg.rcnn.rois_per_image
-    outs = type(outs)(*[x.reshape(b, s, *x.shape[1:]) for x in outs])
-    kpt_logits = kpt_logits.reshape(b, s, *kpt_logits.shape[1:])
-    rc_l = rcnn_losses(outs, kpt_logits, rt, cfg.rcnn.kpt_softmax)
+    with span("train/targets"):
+        # Proposals feed the second stage as constants (no grad through
+        # boxes).
+        props = select_proposals(logits.detach(), deltas.detach(), anchors,
+                                 im_h, im_w, cfg.rpn, True, cfg.box_off)
+        rt = proposal_targets(props.left, props.right, props.valid, gt,
+                              cfg.rcnn, uniforms.roi_fg, uniforms.roi_bg,
+                              uniforms.roi_take, cfg.box_off)
+    if evidence is not None:
+        evidence.update(left=props.left.detach(),
+                        right=props.right.detach(), valid=props.valid,
+                        num_fg_rpn=at.num_fg, num_fg_rcnn=rt.num_fg)
+
+    with span("train/roi_align"):
+        pooled = roi_features(model, feats_l, feats_r, rt.rois_left,
+                              rt.rois_right)
+
+    with span("train/heads"):
+        outs = model.heads(pooled["concat"])
+        kpt_logits = model.keypoints(pooled["left_kpt"])
+        s = cfg.rcnn.rois_per_image
+        outs = type(outs)(*[x.reshape(b, s, *x.shape[1:]) for x in outs])
+        kpt_logits = kpt_logits.reshape(b, s, *kpt_logits.shape[1:])
+        rc_l = rcnn_losses(outs, kpt_logits, rt, cfg.rcnn.kpt_softmax)
 
     losses = {k: v.mean() for k, v in {**rpn_l, **rc_l}.items()}
     losses["num_fg_rpn"] = at.num_fg.float().mean()
@@ -260,11 +284,12 @@ def step_generator(seed: int, step: int,
 def make_train_step(cfg: Config, steps_per_epoch: int = 1000,
                     device: torch.device | str | None = None):
     """``step_fn(state, batch, generator=None, uniforms=None, rows=None,
-    reduce_grads=None) -> metrics``: one step on ``state`` in place (its
-    parameters, traces and step count), with the state and batch on
-    ``device`` (default: the CUDA card).  ``generator`` (on that device)
-    draws the target sampling's uniforms unless ``uniforms`` gives them;
-    ``rows`` places the batch in a global one (:func:`compute_losses`).
+    reduce_grads=None, evidence=None) -> metrics``: one step on ``state``
+    in place (its parameters, traces and step count), with the state and
+    batch on ``device`` (default: the CUDA card).  ``generator`` (on that
+    device) draws the target sampling's uniforms unless ``uniforms`` gives
+    them; ``rows`` places the batch in a global one and ``evidence`` gets
+    the step's proposals and foreground counts (:func:`compute_losses`).
     ``reduce_grads(params)``, if given, runs between the backward and the
     optimizer (``parallel.data_parallel_train_step`` averages the
     gradients over the ranks there).  Metrics are 0-dim tensors with the
@@ -276,7 +301,8 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000,
                 generator: torch.Generator | None = None,
                 uniforms: Uniforms | None = None,
                 rows: Tuple[int, int] | None = None,
-                reduce_grads: Callable | None = None
+                reduce_grads: Callable | None = None,
+                evidence: Dict[str, torch.Tensor] | None = None
                 ) -> Dict[str, torch.Tensor]:
         batch = _place(state, batch, device)
         params = trainable_params(state)
@@ -284,7 +310,7 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000,
             p.grad = None
         with span("train/losses"):
             losses = compute_losses(state.model, batch, cfg, generator,
-                                    uniforms, rows)
+                                    uniforms, rows, evidence)
             total = combine_with_uncertainty(losses, state.uncert)
         with span("train/backward"):
             total.backward()

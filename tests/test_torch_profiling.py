@@ -21,6 +21,7 @@ from stereo_rcnn_tpu_torch.inference import make_full_pipeline
 from stereo_rcnn_tpu_torch.models.detector import build_model
 from stereo_rcnn_tpu_torch.utils import profiling
 from stereo_rcnn_tpu_torch.utils.profiling import recording, span
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 STAGES = ["infer/backbone", "infer/rpn", "infer/roi_align", "infer/heads",
           "infer/post", "infer/keypoints", "infer/solve", "infer/align",
@@ -135,3 +136,60 @@ def test_profiler_sees_every_stage_as_a_host_range(tiny):
               if e.name.startswith("infer/")]
     assert sorted(set(ranges)) == sorted(set(STAGES) | {"infer/pipeline"})
     assert ranges.count("infer/solve") == 2
+
+
+#: The training step's spans inside ``train/losses``, in order: anchor
+#: targets come before the RPN's losses, proposal targets after its
+#: proposals, so ``train/targets`` opens twice.
+TRAIN_STAGES = ["train/backbone", "train/targets", "train/rpn",
+                "train/targets", "train/roi_align", "train/heads"]
+
+
+@pytest.fixture(scope="module")
+def train_step_recorded():
+    """One CPU training step of a narrow tiny GroupNorm config (float32,
+    the fused RoIAlign's plain version) under a recorder."""
+    from stereo_rcnn_tpu_torch.data.synthetic import synthetic_batch
+    from stereo_rcnn_tpu_torch.train.step import (Batch, init_train_state,
+                                                  make_train_step)
+    base = tiny_test_config()
+    cfg = dataclasses.replace(
+        base, compute_dtype="float32",
+        backbone=dataclasses.replace(base.backbone, fpn_dim=32),
+        rpn=dataclasses.replace(base.rpn, conv_dim=64),
+        rcnn=dataclasses.replace(base.rcnn, roi_align_impl="pallas",
+                                 fc_dim=128))
+    il, ir, gt, _ = synthetic_batch(cfg, 1, seed=3, n_objects=2)
+    state = init_train_state(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    step_fn = make_train_step(cfg, 4, device="cpu")
+    with recording() as rec:
+        step_fn(state, Batch(il, ir, gt), torch.Generator().manual_seed(1))
+    return rec
+
+
+def test_training_step_records_its_stages_under_losses(train_step_recorded):
+    rec = train_step_recorded
+    top = sorted((s for s in rec.spans if s.parent is None),
+                 key=lambda s: s.t0_ns)
+    assert [s.name for s in top] == ["train/losses", "train/backward",
+                                     "train/optimizer"]
+    losses = top[0]
+    under = sorted((s for s in rec.spans if s.parent == "train/losses"),
+                   key=lambda s: s.t0_ns)
+    assert [s.name for s in under] == TRAIN_STAGES
+    assert all(losses.t0_ns <= s.t0_ns <= s.t1_ns <= losses.t1_ns
+               for s in under)
+    assert all(a.t1_ns <= b.t0_ns for a, b in zip(under, under[1:]))
+    assert len(rec.spans) == 3 + len(TRAIN_STAGES)
+
+
+def test_backward_and_optimizer_follow_the_losses(train_step_recorded):
+    spans = {s.name: s for s in train_step_recorded.spans
+             if s.parent is None}
+    assert spans["train/losses"].t1_ns <= spans["train/backward"].t0_ns
+    assert spans["train/backward"].t1_ns <= spans["train/optimizer"].t0_ns
+    table = train_step_recorded.per_call(0)
+    assert table["train/targets"]["count"] == 2
+    assert table["train/losses"]["self_ms"] < table["train/losses"][
+        "host_ms"]
