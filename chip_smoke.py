@@ -10,13 +10,14 @@ the CUDA toolkit (``nvcc``).  Phases, each raising on failure:
 
 1. environment: torch / CUDA versions, the card's name and power limit,
    TF32 off for matmuls and convolutions;
-2. build the five kernels, one ``nvcc`` per source, started together: K1
+2. build the six kernels, one ``nvcc`` per source, started together: K1
    the fused stereo RoIAlign in its five sampling-weight modes
    (csrc/stereo_roi_align.cu), K2 its backward
    (csrc/stereo_roi_align_bwd.cu), K3 the windowed one-sided RoIAlign
    (csrc/roi_align_window.cu), K4 the atlas variant
-   (csrc/stereo_roi_align_atlas.cu) and K5 the Gauss-Newton 3D solve
-   (csrc/box_solve.cu);
+   (csrc/stereo_roi_align_atlas.cu), K5 the Gauss-Newton 3D solve
+   (csrc/box_solve.cu) and K6 the backbone's convolution epilogue
+   (csrc/conv_epilogue.cu);
 3. K1 in each mode (f32, kron_bf16, kron_hilo, and the tool-only
    two-matmul modes bf16 and hilo) against its plain PyTorch version at
    the level shapes of both paths (1280x384, C=256; 300 rois for
@@ -42,7 +43,16 @@ the CUDA toolkit (``nvcc``).  Phases, each raising on failure:
    2) against its plain version at batch 2; then K5 against the plain
    loop it fuses on well-posed detections at the pipeline's N = 512
    (batch 16) and N = 32 (batch 1), z free and fixed, timed beside it,
-   flagged (without raising) where its outputs lose the loop's bits;
+   flagged (without raising) where its outputs lose the loop's bits; then
+   K6 against its plain version, bit for bit, at the ResNet-101 sites' C
+   and at C = 255 (1-channel lanes), with and without a residual and a
+   ReLU, and at the offline call's site shapes (the stem's 32 x 64 x 192
+   x 640, C2 to C5), timed at the offline shape (32 x 256 x 96 x 320 with
+   a residual) beside its bound, the plain version and the unfolded
+   passes it replaces (frozen BN's multiply and add, the residual add,
+   the ReLU), its timed output checked too; and that site whole (1x1
+   convolution and epilogue) folded + K6, folded + torch's in-place
+   epilogue, and cuDNN's fused convolution + bias + add + ReLU;
 7. the inference path, ``make_full_pipeline`` at full width (ResNet-101,
    FPN 256, fc 2048, 1280x384, bf16; one random model from seed 0 and
    rendered scenes, seed 7, 5 objects, reused) in three configurations,
@@ -50,8 +60,10 @@ the CUDA toolkit (``nvcc``).  Phases, each raising on failure:
    checks: ``bench.py``'s program (``roi_align_impl="pallas"``,
    ``kron_bf16``), ``Config()`` itself (``"xla"``, the atlas gather: no
    kernel launch) and the fused kernel with f32 weights; each call must
-   launch K5 twice (the solve and the z-fixed re-solve), and the plain
-   RoIAlign versions and the plain solve loop must not run; then pairs/s
+   launch K5 twice (the solve and the z-fixed re-solve) and K6 107 times
+   (the stem, 33 bottlenecks x 3, the FPN's 7), and the plain RoIAlign
+   versions, the plain solve loop and the plain epilogue must not run;
+   then pairs/s
    at batch 16 and p50 at
    batch 1 of each, timed in two turns (in order, then reversed), the
    time of each stage, and the RoIAlign stage alone at batch 16 on the
@@ -154,8 +166,8 @@ Without a CUDA device it exits non-zero and prints no result.
     python3 chip_smoke.py --digests PATH
 
 also writes to PATH a JSON object of the sha256 of every output of K1,
-K2, K3, K4 and K5 that phases 3 to 6 check, keyed by kernel, mode and shape:
-two builds that give the same file give the same bits on these inputs
+K2, K3, K4, K5 and K6 that phases 3 to 6 check, keyed by kernel, mode and
+shape: two builds that give the same file give the same bits on these inputs
 (the inputs come from a seeded generator).  The file is written before
 phase 7.
 
@@ -243,6 +255,19 @@ HBM_BYTES_PER_S = 3.35e12
 # repeats the loop's float32 operations in its order (the same bits on an
 # H100), so only rounding that the solve damps may part them.
 TOL_SOLVE = 1e-3
+# K6's timed shape: the offline call's C2 (16 stereo pairs, 1280x384).
+K6_SHAPE = (32, 256, 96, 320)
+# K6's other sites in the offline call, checked bit for bit at their own
+# shapes: (shape, [(residual, relu), ...]).  The stem's epilogue takes no
+# residual; each stage's last conv does, its first two do not; the FPN's
+# laterals take one and no ReLU.
+K6_SITES = {
+    "stem": ((32, 64, 192, 640), [(False, True)]),
+    "C2": (K6_SHAPE, [(False, True), (True, False)]),
+    "C3": ((32, 512, 48, 160), [(False, True), (True, True)]),
+    "C4": ((32, 1024, 24, 80), [(False, True), (True, True)]),
+    "C5": ((32, 2048, 12, 40), [(False, True), (True, True)]),
+}
 
 
 def upstream_state_dict(model) -> dict:
@@ -376,10 +401,11 @@ def _counting(module, name, counts):
 class _PlainCalls:
     """Counts the calls of the plain versions of the kernels while active:
     the RoIAlign's (``ops.stereo_roi_align``) and, where the solve module
-    is given too, the solve's (``solve.box_estimator``)."""
+    and the epilogue's are given too, the solve's (``solve.box_estimator``)
+    and the convolution epilogue's (``ops.conv_epilogue``)."""
 
     NAMES = ("stereo_roi_align_packed_ref", "stereo_roi_align_packed_bwd_ref",
-             "solve_batch_ref")
+             "solve_batch_ref", "conv_epilogue_ref")
 
     def __init__(self, *modules):
         self.modules = modules
@@ -948,6 +974,134 @@ def check_k5(dev, card, digests=None):
     return {"max_abs_err": err, "bits_lost": lost, "by_case": res}
 
 
+def check_k6(dev, card, digests=None):
+    """Phase 6, end: K6 against its plain version, bit for bit (the same
+    float32 additions in the same order, each rounded once), bf16 at batch
+    2, 24x40, at the ResNet-101 sites' C and at C = 255, with and without
+    a residual and a ReLU; then at the offline call's site shapes
+    (:data:`K6_SITES`), where each thread walks many grid strides with its
+    bias in registers; then timed at :data:`K6_SHAPE` with a residual and
+    a ReLU beside its bound (y and the residual read, the result written),
+    the plain version and the unfolded passes it replaces, and its output
+    there checked too.  Last, the whole site (C2's conv3: the 1x1
+    convolution and its epilogue) three ways: folded with K6, folded with
+    torch's own epilogue (the bias in ``F.conv2d``, then in-place add and
+    ReLU), and cuDNN's fused convolution + bias + add + ReLU.
+    ``digests`` (a dict or None) takes the sha256 of every output."""
+    import torch.nn.functional as F
+
+    from stereo_rcnn_tpu_torch.ops import conv_epilogue as ce
+    k6 = ce.conv_epilogue_kernel
+    cl = torch.channels_last
+
+    def draw(gen, shape):
+        return (4 * torch.randn(shape, generator=gen, device=dev)).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+
+    def same(got, res, relu, y, bias, tag):
+        ref = ce.conv_epilogue_ref(y, bias, res, relu)
+        if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+            raise RuntimeError(f"K6 {tag}: not the plain version's bits")
+        if digests is not None:
+            digests[f"K6 {tag}"] = _sha256(got.view(torch.int16))
+
+    checked = 0
+    for c in (64, 128, 256, 512, 1024, 2048, ODD_C):
+        gen = _own_gen(dev, c)
+        y, r = draw(gen, (2, c, 24, 40)), draw(gen, (2, c, 24, 40))
+        bias = torch.randn(c, generator=gen, device=dev)
+        for res in (None, r):
+            for relu in (False, True):
+                got = k6(y, bias, res, relu, out=torch.empty_like(y))
+                same(got, res, relu, y, bias,
+                     f"C={c} residual={res is not None} relu={relu}")
+                checked += 1
+    for name, (shape, cases) in K6_SITES.items():
+        gen = _own_gen(dev, shape[1] + 1)
+        y = draw(gen, shape)
+        bias = torch.randn(shape[1], generator=gen, device=dev)
+        r = draw(gen, shape) if any(res for res, _ in cases) else None
+        for res, relu in cases:
+            res = r if res else None
+            got = k6(y, bias, res, relu, out=torch.empty_like(y))
+            same(got, res, relu, y, bias, f"{name} {'x'.join(map(str, shape))}"
+                 f" residual={res is not None} relu={relu}")
+            checked += 1
+        del y, r, got
+    n, c, h, w = K6_SHAPE
+    gen = _own_gen(dev, 6)
+    y, r = draw(gen, K6_SHAPE), draw(gen, K6_SHAPE)
+    bias = torch.randn(c, generator=gen, device=dev)
+    scale = torch.rand(c, generator=gen, device=dev) + 0.5
+    out = torch.empty_like(y)
+    shape = (1, -1, 1, 1)
+
+    def unfolded():
+        # A bottleneck's tail before the fold: bn3 (its scale and bias
+        # cast, then multiply and add), the residual add, the ReLU.
+        return F.relu(y * scale.to(y.dtype).view(shape) +
+                      bias.to(y.dtype).view(shape) + r)
+
+    st = _timed(lambda: k6(y, bias, r, True, out=out),
+                "conv_epilogue_kernel",
+                lambda: ce.conv_epilogue_ref(y, bias, r, True),
+                3 * y.numel() * y.element_size())
+    same(out, r, True, y, bias, f"timed {n}x{c}x{h}x{w} residual=True "
+         "relu=True")
+    checked += 1
+    st["unfolded_ms"] = _events_ms(unfolded, 20)
+    st["bits_checked"] = checked
+    st["site"] = _k6_site_ways(k6, y, r, bias, gen)
+    print(f"K6: {checked} cases the plain version's bits (with the offline "
+          f"sites {list(K6_SITES)}); at {n}x{c}x{h}x{w} bf16 with a residual"
+          f" and ReLU: kernel {st['ms']:.3f} ms (device; "
+          f"{st['call_ms']:.3f} ms per wrapper call), bound "
+          f"{st['bound_ms']:.3f} ms (bytes; "
+          f"{100 * st['bound_ms'] / st['ms']:.1f} %), plain "
+          f"{st['plain_ms']:.3f} ms, unfolded passes "
+          f"{st['unfolded_ms']:.3f} ms; the site (1x1 conv + epilogue) "
+          f"{json.dumps(st['site'])}  [{card}]", flush=True)
+    return st
+
+
+def _k6_site_ways(k6, y, r, bias, gen):
+    """C2's conv3 site at the offline shape (``y``'s: a 1x1 convolution
+    from C/4 channels, its bias, the residual ``r``, ReLU), timed by CUDA
+    events per call three ways: folded + K6 (the program's), folded +
+    torch's epilogue (the bias in ``F.conv2d`` as bf16, then ``add_`` and
+    ``relu_``), cuDNN's fused ``cudnn_convolution_add_relu``; each with
+    the share of its outputs whose bits differ from the program's.  A way
+    that raises gives its error instead."""
+    import torch.nn.functional as F
+
+    n, c, h, w = y.shape
+    dev = y.device
+    x = (torch.randn(n, c // 4, h, w, generator=gen, device=dev)
+         ).to(y.dtype).contiguous(memory_format=torch.channels_last)
+    wt = (torch.randn(c, c // 4, 1, 1, generator=gen, device=dev) / 8
+          ).to(y.dtype).contiguous(memory_format=torch.channels_last)
+    b16 = bias.to(y.dtype)
+    one, zero = (1, 1), (0, 0)
+    ways = {
+        "fold_k6": lambda: k6(F.conv2d(x, wt), bias, r, True),
+        "fold_torch": lambda: F.conv2d(x, wt, b16).add_(r).relu_(),
+        "cudnn_fused": lambda: torch.cudnn_convolution_add_relu(
+            x, wt, r, 1.0, b16, one, zero, one, 1),
+    }
+    ours = ways["fold_k6"]()
+    res = {}
+    for name, fn in ways.items():
+        try:
+            got = fn()
+            res[name] = {"ms": _events_ms(fn, 20),
+                         "bits_differ": (got.view(torch.int16) !=
+                                         ours.view(torch.int16)
+                                         ).float().mean().item()}
+        except RuntimeError as e:
+            res[name] = {"error": str(e).splitlines()[0][:200]}
+    return res
+
+
 def _k4_any_c(sra, k4, dev, card, digests):
     """K4 at an odd C (1-channel lanes) and at a C beyond one pass of its
     lanes, against its plain version at batch 2 (bf16 and float32); the
@@ -1077,13 +1231,18 @@ def inference(sra, dev, card):
                                        make_full_pipeline, synthetic_images)
     from stereo_rcnn_tpu_torch.geometry.anchors import generate_anchors
     from stereo_rcnn_tpu_torch.models.detector import roi_features
+    from stereo_rcnn_tpu_torch.models.resnet_fpn import STAGE_BLOCKS
     from stereo_rcnn_tpu_torch.models.stereo_rpn import select_proposals
 
+    from stereo_rcnn_tpu_torch.ops import conv_epilogue as ce
     from stereo_rcnn_tpu_torch.solve import box_estimator as be
 
     k1, k2 = sra.stereo_roi_align_kernel, sra.stereo_roi_align_bwd_kernel
-    k5 = be.gauss_newton_solve_kernel
+    k5, k6 = be.gauss_newton_solve_kernel, ce.conv_epilogue_kernel
     base = Config()
+    # K6 after the stem, each of a bottleneck's three convolutions and the
+    # FPN's seven: 107 a call for ResNet-101.
+    k6_per_call = 1 + 3 * sum(STAGE_BLOCKS[base.backbone.depth]) + 7
 
     def rcnn(impl, hat):
         return dataclasses.replace(base, rcnn=dataclasses.replace(
@@ -1110,10 +1269,10 @@ def inference(sra, dev, card):
         fused = cfg.rcnn.roi_align_impl == "pallas"
         k1.reset_counts()
         k2.reset_counts()
-        with _PlainCalls(sra, be) as plain:
+        with _PlainCalls(sra, be, ce) as plain:
             n_det = {}
             for b in (16, 1):
-                before = k1.launches, k5.launches
+                before = k1.launches, k5.launches, k6.launches
                 out = fn(model, left[:b], right[:b])
                 torch.cuda.synchronize()
                 if (k1.launches > before[0]) != fused:
@@ -1123,6 +1282,10 @@ def inference(sra, dev, card):
                 if k5.launches != before[1] + 2:
                     raise RuntimeError(f"{name}, batch {b}: K5 launches "
                                        f"{k5.launches - before[1]}, not 2")
+                if k6.launches != before[2] + k6_per_call:
+                    raise RuntimeError(
+                        f"{name}, batch {b}: K6 launches "
+                        f"{k6.launches - before[2]}, not {k6_per_call}")
                 n_det[b] = _check_detections(out, b, d)
         if n_det[16] == 0:
             raise RuntimeError(f"{name}: no detections at batch 16")
@@ -1132,13 +1295,13 @@ def inference(sra, dev, card):
                                f"versions {plain}")
         print(f"inference {name}: n_det {n_det[16]} of {16 * d} at batch 16,"
               f" {n_det[1]} of {d} at batch 1, finite; K1 launches "
-              f"{launches[name][0]}, K2 0, K5 2 a call, plain versions 0 "
-              "calls", flush=True)
+              f"{launches[name][0]}, K2 0, K5 2 a call, K6 {k6_per_call} a "
+              "call, plain versions 0 calls", flush=True)
 
     # Timed in turns, the configurations in order and then reversed: the
     # host-bound stages vary from call to call.
     results = {name: [] for name in configs}
-    with _PlainCalls(sra, be) as plain:
+    with _PlainCalls(sra, be, ce) as plain:
         for name in list(configs) + list(reversed(configs)):
             cfg = configs[name]
             model.cfg = cfg
@@ -1567,6 +1730,7 @@ def serving(sra, dev, card, work):
     from stereo_rcnn_tpu_torch.geometry.calib import default_kitti_calib
     from stereo_rcnn_tpu_torch.inference import make_full_pipeline
     from stereo_rcnn_tpu_torch.models.detector import build_model
+    from stereo_rcnn_tpu_torch.ops import conv_epilogue as ce
     from stereo_rcnn_tpu_torch.solve import box_estimator as be
     from stereo_rcnn_tpu_torch.tools import (calibrate_norm, demo, diag_3d,
                                              export_model, serve)
@@ -1707,7 +1871,7 @@ def serving(sra, dev, card, work):
                              cfg.data.image_w, cfg.backbone.pixel_means_bgr,
                              dev)[:4]
     eager = make_full_pipeline(cfg)
-    with _PlainCalls(sra, be) as plain:
+    with _PlainCalls(sra, be, ce) as plain:
         ours = pipe(*batch)
         ref = eager(model, *batch)
         # Mean ms per call over RATIO_CALLS calls, in RATIO_TURNS
@@ -2192,6 +2356,7 @@ def multiclass(sra, dev, card):
     from stereo_rcnn_tpu_torch.geometry.calib import default_kitti_calib
     from stereo_rcnn_tpu_torch.inference import make_full_pipeline
     from stereo_rcnn_tpu_torch.models.detector import init_params
+    from stereo_rcnn_tpu_torch.ops import conv_epilogue as ce
     from stereo_rcnn_tpu_torch.solve import box_estimator as be
     from stereo_rcnn_tpu_torch.tools import test_net, train
     from stereo_rcnn_tpu_torch.train import (Batch, init_train_state,
@@ -2262,7 +2427,7 @@ def multiclass(sra, dev, card):
     fn = make_full_pipeline(cfg, calib)
     k1.reset_counts()
     k2.reset_counts()
-    with _PlainCalls(sra, be) as plain:
+    with _PlainCalls(sra, be, ce) as plain:
         out = fn(model, left, right)
         torch.cuda.synchronize()
     launches["inference"] = counts()
@@ -2436,6 +2601,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this check needs a CUDA device")
+    from stereo_rcnn_tpu_torch.ops import conv_epilogue as ce
     from stereo_rcnn_tpu_torch.ops import roi_align_window as win
     from stereo_rcnn_tpu_torch.ops import stereo_roi_align as sra
     from stereo_rcnn_tpu_torch.ops.cuda_build import load_kernels
@@ -2445,7 +2611,7 @@ def main(argv=None) -> int:
     phase_s = {}
     kernels = (sra.stereo_roi_align_kernel, sra.stereo_roi_align_bwd_kernel,
                win.roi_align_window_kernel, sra.stereo_roi_align_atlas_kernel,
-               be.gauss_newton_solve_kernel)
+               be.gauss_newton_solve_kernel, ce.conv_epilogue_kernel)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2460,14 +2626,17 @@ def main(argv=None) -> int:
     print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}  "
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # K5's launches by phase, from a count reset as each phase starts.
-    k5_by_phase = {}
+    # K5's and K6's launches by phase, from counts reset as each phase
+    # starts.
+    k5_by_phase, k6_by_phase = {}, {}
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
         be.gauss_newton_solve_kernel.reset_counts()
+        ce.conv_epilogue_kernel.reset_counts()
         res = fn(*args)
         k5_by_phase[name] = be.gauss_newton_solve_kernel.launches
+        k6_by_phase[name] = ce.conv_epilogue_kernel.launches
         phase_s[name] = time.perf_counter() - t0
         print(f"[phase {name}: {phase_s[name]:.1f} s]", flush=True)
         return res
@@ -2493,6 +2662,7 @@ def main(argv=None) -> int:
     k3 = phase("K3", check_k3, dev, gen, card, digests)
     k4 = phase("K4", check_k4, sra, dev, gen, card, digests)
     k5 = phase("K5", check_k5, dev, card, digests)
+    k6 = phase("K6", check_k6, dev, card, digests)
     if digests is not None:
         with open(args.digests, "w") as f:
             json.dump(digests, f, indent=1, sort_keys=True)
@@ -2583,6 +2753,17 @@ def main(argv=None) -> int:
         "launches": sum(k5_paths.values()), "launches_by_path": k5_paths,
         **k5, "bound_by": "the serial chain of iterations",
         "library_ms": None})
+    k6_paths = {name: n for name, n in k6_by_phase.items() if n}
+    if not (k6_by_phase["K6"] and k6_by_phase["inference"]):
+        raise RuntimeError(f"K6 launches by phase {k6_by_phase}: none in "
+                           "its check or in the inference phase")
+    entries.append({
+        "name": "conv_epilogue", "route": "cuda",
+        "source": "stereo_rcnn_tpu_torch/csrc/conv_epilogue.cu",
+        "replaces": "no Pallas kernel: XLA fuses the epilogue into the "
+                    "convolution on the TPU",
+        "launches": sum(k6_paths.values()), "launches_by_path": k6_paths,
+        **k6, "bound_by": "bytes", "library_ms": None})
     for entry in entries:
         if not entry["launches"]:
             raise RuntimeError(f"{entry['name']} was launched on no path")

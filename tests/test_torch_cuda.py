@@ -10,7 +10,10 @@ even C: it is checked at C = 34 too.  Every kernel takes an odd C through
 1-channel lanes (checked at C = 35, K2 at C = 33), which give the bits of
 the wider lanes; K4 also takes a C beyond one pass of its 256 lanes x 8
 channels (C = 2056).  K5, the Gauss-Newton 3D solve, against the plain
-loop it fuses, at the pipeline's N = 512 and N = 32.
+loop it fuses, at the pipeline's N = 512 and N = 32.  K6, the backbone's
+convolution epilogue, bit for bit against its plain version at the
+ResNet-101 sites' channel counts (16-byte lanes) and at C = 255 (1-channel
+lanes), and its 107 launches a pipeline call of ``res101_kron``.
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  The file imports no JAX, so it runs on
 a machine without it:
@@ -23,6 +26,7 @@ import torch
 
 from stereo_rcnn_tpu_torch.data.synthetic import synthetic_solve_inputs
 from stereo_rcnn_tpu_torch.geometry.calib import StereoCalib
+from stereo_rcnn_tpu_torch.ops import conv_epilogue as t_epi
 from stereo_rcnn_tpu_torch.ops import stereo_roi_align as t_sra
 from stereo_rcnn_tpu_torch.solve import box_estimator as t_box
 
@@ -469,3 +473,100 @@ def test_k5_launches_twice_per_pipeline_call():
         torch.cuda.synchronize()
         assert k5.launches == before + 2
     assert out.position.isfinite().all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 128, 256, 512, 1024, 2048, 255])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k6_matches_plain_bit_for_bit(dtype, relu, residual, c):
+    """K6 over a channels_last convolution output, in place, and through
+    the registered op (out of place), against the plain version on the
+    card: the same additions in the same order, each rounded once, so the
+    same bits.  The ResNet-101 sites' C take 16-byte lanes; C = 255
+    takes 1-channel lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(c)
+
+    def draw():
+        return (4 * torch.randn(3, c, 13, 21, generator=gen, device="cuda")
+                ).to(dtype).contiguous(memory_format=torch.channels_last)
+
+    y = draw()
+    r = draw() if residual else None
+    bias = torch.randn(c, generator=gen, device="cuda")
+    ref = t_epi.conv_epilogue_ref(y, bias, r, relu)
+    k6 = t_epi.conv_epilogue_kernel
+    before = k6.launches
+    op = torch.ops.stereo_rcnn_tpu_torch.conv_epilogue(y, bias, r, relu)
+    got = t_epi.conv_epilogue(y, bias, r, relu)
+    torch.cuda.synchronize()
+    assert k6.launches == before + 2
+    assert got.data_ptr() == y.data_ptr()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for out in (op, got):
+        assert out.dtype == dtype
+        assert out.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(out.view(bits), ref.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,residual", [
+    ((32, 64, 192, 640), False), ((32, 256, 96, 320), True),
+    ((32, 1024, 24, 80), False), ((32, 2048, 12, 40), True)])
+def test_k6_matches_plain_at_the_offline_sites(shape, residual):
+    """K6 at the offline call's site shapes (16 stereo pairs at
+    1280x384: the stem, C2, C4, C5), where the grid is capped at a full
+    card and each thread walks many grid strides with its bias in
+    registers: the plain version's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(shape[1])
+
+    def draw():
+        return (4 * torch.randn(shape, generator=gen, device="cuda")).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    y = draw()
+    r = draw() if residual else None
+    bias = torch.randn(shape[1], generator=gen, device="cuda")
+    ref = t_epi.conv_epilogue_ref(y, bias, r, True)
+    got = t_epi.conv_epilogue(y, bias, r, True)
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_k6_launches_107_per_pipeline_call():
+    """One ``make_full_pipeline`` call of the ``res101_kron``
+    configuration (ResNet-101 + FPN, frozen BN, bf16) at batch 1 launches
+    K6 107 times: the stem, 33 bottlenecks x 3 and the FPN's 7
+    convolutions; the folded weights are built once over two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+    import os
+
+    from stereo_rcnn_tpu_torch.config import load_config
+    from stereo_rcnn_tpu_torch.data.synthetic import synthetic_images
+    from stereo_rcnn_tpu_torch.inference import (broadcast_calib,
+                                                 make_full_pipeline)
+    from stereo_rcnn_tpu_torch.models.detector import init_params
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                        "h100_bench", "configs", "res101_kron.json")
+    with open(path) as f:
+        cfg = load_config(None, overrides=json.load(f)["config"])
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    model.eval()
+    il, ir, calib = synthetic_images(cfg, 1, seed=5, n_objects=2)
+    pipe = make_full_pipeline(cfg)
+    inputs = (torch.from_numpy(il).cuda(), torch.from_numpy(ir).cuda(),
+              broadcast_calib(calib, 1, "cuda"))
+    k6 = t_epi.conv_epilogue_kernel
+    for _ in range(2):
+        before = k6.launches
+        pipe(model, *inputs)
+        torch.cuda.synchronize()
+        assert k6.launches == before + 107
+    assert model.backbone_net.fold_builds == 1
