@@ -7,9 +7,12 @@ RoIAlign in each sampling-weight mode (K1) and its backward (K2), the
 windowed one-sided RoIAlign (K3) and the atlas variant (K4); each runs on
 the card and as its plain PyTorch version on the CPU.  The Gauss-Newton 3D
 solve, XLA-compiled ``jnp`` in the JAX package, is one kernel on the card
-too (K5, ``solve.box_estimator``) and its plain loop on the CPU.  The
-atlas gather RoIAlign (``ops.roi_align``) is plain torch.  Nothing here
-imports JAX.
+too (K5, ``solve.box_estimator``) and its plain loop on the CPU; so is the
+epilogue of each folded backbone convolution, bias, residual and ReLU in
+one pass, which XLA fuses into the convolution on the TPU (K6,
+``ops.conv_epilogue``).  ``ops/cuda_build.py`` builds, launches and
+dispatches all six.  The atlas gather RoIAlign (``ops.roi_align``) is
+plain torch.  Nothing here imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -15,6 +15,8 @@ flattens the same way (the JAX module permutes them to (h, w, c);
 
 :func:`import_detector` reports what it matched and which keys no rule
 claimed, so a run on a real checkpoint shows any naming drift.
+:func:`upstream_state_dict` writes a frozen-BN model's weights the other
+way, as the released checkpoint names them.
 """
 
 from __future__ import annotations
@@ -133,3 +135,25 @@ def import_detector(sd: Mapping[str, np.ndarray], depth: int = 101,
     return ({k: torch.from_numpy(np.ascontiguousarray(v))
              for k, v in out.items()},
             {"matched": matched, "unclaimed": unclaimed})
+
+
+def upstream_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A frozen-BN model's weights under the released upstream checkpoint's
+    names, as :func:`import_detector` reads them: the port's container
+    prefixes dropped, and each frozen BN (``scale``, ``bias``) written as a
+    BatchNorm of that weight and bias with mean 0 and variance 1.  CPU
+    tensors."""
+    out = {}
+    for k, v in model.state_dict().items():
+        v = v.detach().cpu().clone()
+        for prefix in ("backbone_net.", "rcnn_head.", "kpt_head."):
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+        if k.endswith(".scale"):
+            stem = k[:-len(".scale")]
+            out[stem + ".weight"] = v
+            out[stem + ".running_mean"] = torch.zeros_like(v)
+            out[stem + ".running_var"] = torch.ones_like(v)
+        else:
+            out[k] = v
+    return out

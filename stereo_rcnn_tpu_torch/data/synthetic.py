@@ -16,6 +16,7 @@ import os
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 from stereo_rcnn_tpu_torch.config import Config
 from stereo_rcnn_tpu_torch.data.kitti import (KittiObject, _all_corners_cam,
@@ -461,3 +462,35 @@ def synthetic_solve_inputs(n: int, seed: int, edge_rows: bool = False
                alpha=d[:, 10], kpt_idx=d[:, 11].astype(np.int32), calib=cal,
                depth=d[:, 12], well_posed=well_posed)
     return {k: np.ascontiguousarray(v) for k, v in out.items()}
+
+
+def synthetic_roi_inputs(b: int, c: int, r: int = 300, seed: int = 0,
+                         device="cpu", dtype=torch.float32):
+    """Inputs of the stereo RoIAlign kernels at 1280x384, drawn on
+    ``device`` from a torch generator seeded with ``seed``:
+    ``(feats_l, feats_r, rois_l, rois_r)``, each side's P2..P5 ``[b,
+    384 / s, 1280 / s, c]`` (s = 4, 8, 16, 32) standard normal in
+    ``dtype``, and float32 rois ``[b, r, 4]`` (r >= 5) of realistic sizes,
+    many under 56 px (samples under one P2 cell apart).  The first five
+    rois of each image are a 300x40 px roi (P2, wider than its 64-cell
+    window), a 1200x100 px roi (P4), a zero-area roi, a roi fully outside
+    the image and a P5 roi beyond the image on every side.  The right rois
+    are the left ones shifted 17 and 14 px left."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    feats_l, feats_r = [
+        [torch.randn(b, 384 // s, 1280 // s, c, generator=gen,
+                     device=device).to(dtype) for s in (4, 8, 16, 32)]
+        for _ in range(2)]
+    xy = torch.rand(b, r, 2, generator=gen, device=device) * \
+        torch.tensor([1300.0, 400.0], device=device) - 20.0
+    wh = torch.rand(b, r, 2, generator=gen, device=device) * \
+        torch.tensor([500.0, 250.0], device=device) + 2.0
+    rois = torch.cat([xy, xy + wh], dim=-1)
+    rois[:, :5] = torch.tensor([[100.0, 100.0, 400.0, 140.0],
+                                [50.0, 100.0, 1250.0, 200.0],
+                                [10.0, 10.0, 10.0, 10.0],
+                                [1400.0, 500.0, 1500.0, 600.0],
+                                [-100.0, -80.0, 1400.0, 500.0]],
+                               device=device)
+    return (feats_l, feats_r, rois,
+            rois - torch.tensor([17.0, 0.0, 14.0, 0.0], device=device))

@@ -49,7 +49,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from stereo_rcnn_tpu_torch.ops.conv_epilogue import conv_epilogue, traced
+from stereo_rcnn_tpu_torch.ops.conv_epilogue import conv_epilogue
+from stereo_rcnn_tpu_torch.ops.cuda_build import traced
 
 STAGE_BLOCKS = {10: (1, 1, 1, 1), 26: (2, 2, 2, 2), 50: (3, 4, 6, 3),
                 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}

@@ -9,16 +9,13 @@ of ``y``'s shape and layout.  The backbone calls it after each convolution
 whose frozen-BN scale it folded into the weights (``models/resnet_fpn.py``),
 when no gradient is taken.
 
-It dispatches by where it runs: on CUDA tensors, eagerly, K6 writes over
-``y`` through :data:`conv_epilogue_kernel` (one launch, counted); on CPU
-tensors :func:`conv_epilogue_ref`, the plain version, computes it; under
-``torch.export`` or ``torch.compile`` it is the registered op
+It dispatches by ``ops/cuda_build.py``'s rule: eagerly on CUDA tensors
+K6 writes over ``y`` through :data:`conv_epilogue_kernel` (one launch,
+counted); on CPU tensors :func:`conv_epilogue_ref`, the plain version,
+computes it; under ``torch.export`` or ``torch.compile``, or under a
+``TorchDispatchMode``, it is the registered op
 ``stereo_rcnn_tpu_torch::conv_epilogue``, one graph node per call that
-dispatches the same way at run time (out of place); so it is under a
-``TorchDispatchMode``, which then sees the call.  The registered op's
-eager dispatch costs more host time than K6's launch (about 40 us a call
-against 10 on an H100's host), so eager calls go to the wrapper
-directly.
+dispatches the same way at run time (out of place).
 """
 
 from __future__ import annotations
@@ -27,7 +24,7 @@ import ctypes
 
 import torch
 
-from stereo_rcnn_tpu_torch.ops.cuda_build import CudaKernel, on_device
+from stereo_rcnn_tpu_torch.ops.cuda_build import CudaKernel, kernel_op
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,7 +60,6 @@ class ConvEpilogueKernel(CudaKernel):
         ``[N, C, H, W]`` in contiguous channels_last on a card, float32
         ``bias`` ``[C]`` and ``residual`` (or None) of ``y``'s dtype, shape
         and layout, all on ``y``'s card."""
-        fn = self.load()
         dev = y.device
         cl = torch.channels_last
         c = y.shape[1]
@@ -93,50 +89,37 @@ class ConvEpilogueKernel(CudaKernel):
         if sms is None:
             sms = self._sms[idx] = torch.cuda.get_device_properties(
                 idx).multi_processor_count
-        args = (y.data_ptr(), bias.data_ptr(),
-                None if residual is None else residual.data_ptr(),
-                out.data_ptr(), y.numel() // c, c, int(relu),
-                int(y.dtype == torch.bfloat16), sms)
-        if idx == torch.cuda.current_device():
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
-        else:
-            with torch.cuda.device(idx):
-                err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
-        self._launched(err)
+        self.launch(dev, y.data_ptr(), bias.data_ptr(),
+                    None if residual is None else residual.data_ptr(),
+                    out.data_ptr(), y.numel() // c, c, int(relu),
+                    int(y.dtype == torch.bfloat16), sms)
         return out
 
 
 conv_epilogue_kernel = ConvEpilogueKernel()
 
 
-# K6 as a registered op, so that ``torch.export`` keeps each call as one
-# graph node (it cannot trace a ctypes launch on ``data_ptr()``s); at run
-# time the node dispatches by device: CUDA tensors to K6 (out of place, as
-# an op's output may not alias its inputs), CPU tensors to the plain
-# version (looked up by name at each call), other devices raise.
-@torch.library.custom_op(
-    "stereo_rcnn_tpu_torch::conv_epilogue", mutates_args=(),
-    device_types="cpu",
-    schema="(Tensor y, Tensor bias, Tensor? residual, bool relu) -> Tensor")
-def conv_epilogue_op(y, bias, residual, relu):
+def _plain(y, bias, residual, relu):
+    # Looked up by name at each call, so that a wrapper put in its place
+    # (a count of plain calls) sees every call.
     return conv_epilogue_ref(y, bias, residual, relu)
 
 
-@conv_epilogue_op.register_kernel("cuda")
-def _conv_epilogue_cuda(y, bias, residual, relu):
+def _out_of_place(y, bias, residual, relu):
+    # The registered op's CUDA kernel: an op's output may not alias its
+    # inputs.
     return conv_epilogue_kernel(y, bias, residual, relu,
                                 out=torch.empty_like(y))
 
 
-@conv_epilogue_op.register_fake
-def _conv_epilogue_fake(y, bias, residual, relu):
+def _fake(y, bias, residual, relu):
     return torch.empty_like(y)
 
 
-def traced(t: torch.Tensor) -> bool:
-    """Whether ``t`` is seen by a tracer (``torch.export``,
-    ``torch.compile``) rather than computed eagerly."""
-    return torch.compiler.is_compiling() or type(t) is not torch.Tensor
+_conv_epilogue = kernel_op(
+    "conv_epilogue",
+    "(Tensor y, Tensor bias, Tensor? residual, bool relu) -> Tensor",
+    _out_of_place, _plain, _fake, eager_card=conv_epilogue_kernel)
 
 
 def conv_epilogue(y: torch.Tensor, bias: torch.Tensor,
@@ -146,9 +129,4 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor,
     over ``y`` (in place) on a card, the plain version on the CPU; the
     registered op while traced or under a dispatch mode (a FLOP or byte
     counter, ``tools/roofline.py``), which then sees the call."""
-    if traced(y) or torch._C._len_torch_dispatch_stack():
-        return torch.ops.stereo_rcnn_tpu_torch.conv_epilogue(
-            y, bias, residual, relu)
-    fn = on_device(y.device, "conv_epilogue", conv_epilogue_kernel,
-                   conv_epilogue_ref)
-    return fn(y, bias, residual, relu)
+    return _conv_epilogue(y, bias, residual, relu)

@@ -1,20 +1,28 @@
-"""Build a CUDA source of ``csrc/`` with nvcc and load it with ctypes.
+"""How the port's hand-written kernels are built, launched and dispatched.
 
-The library is compiled at first use for ``sm_90a`` into
-``stereo_rcnn_tpu_torch/csrc/build/`` (git-ignored), under a name keyed by
-a hash of the source, the ``csrc`` headers it includes and the flags
-(:func:`library_path`), so an edited source or header is rebuilt and an
-unchanged one is loaded as it is.  Nothing here falls back: a missing
-``nvcc`` or a failed build raises.  :class:`CudaKernel` binds one C entry
-of a source; :func:`load_kernels` builds several at once;
-:func:`on_device` picks a kernel or its plain version by the tensors'
-device; :func:`check_levels` checks the feature levels a kernel
-reads.
-"""
+Build: a source of ``csrc/`` is compiled with nvcc for ``sm_90a`` at first
+use, never at import, into ``stereo_rcnn_tpu_torch/csrc/build/``
+(git-ignored), under a name keyed by a hash of the source, the ``csrc``
+headers it includes and the flags (:func:`library_path`).  Nothing falls
+back: a missing ``nvcc`` or a failed build raises.  :func:`load_kernels`
+builds several at once.
+
+Launch: a :class:`CudaKernel` binds one C entry; its wrapper checks and
+packs its own arguments, then calls :meth:`CudaKernel.launch`, which makes
+the card current only if it is not, passes its current stream, raises on
+a CUDA error and counts the launch.
+
+Dispatch, one rule (:func:`on_device`): CUDA tensors launch the kernel or
+raise, CPU tensors take the plain PyTorch version, other devices raise.
+A kernel that ``torch.export`` must keep as one graph node is also the op
+``stereo_rcnn_tpu_torch::<name>`` (:func:`kernel_op`), called only while
+:func:`traced` or under a ``TorchDispatchMode``.  :func:`check_levels`
+checks the feature levels a kernel reads."""
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -110,7 +118,7 @@ def load_library(source: str) -> tuple[ctypes.CDLL, BuildInfo]:
 
 class CudaKernel:
     """ctypes binding of one C entry of a ``csrc/`` source, built at first
-    use.  ``launches`` counts kernel launches; it grows in ``__call__``
+    use.  ``launches`` counts kernel launches; it grows in :meth:`launch`
     only, right after a launch that returned no error."""
 
     source = ""
@@ -134,7 +142,15 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def _launched(self, err: int) -> None:
+    def launch(self, device: torch.device, *args) -> None:
+        """Call the C entry with ``args`` and the current stream of the
+        card ``device``, made current for the call if it is not; raise on
+        a CUDA error, else count the launch."""
+        fn = self.load()
+        idx = device.index
+        with (contextlib.nullcontext() if idx == torch.cuda.current_device()
+              else torch.cuda.device(idx)):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
         if err != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{err}")
@@ -157,6 +173,36 @@ def on_device(dev, name: str, cuda_fn, cpu_fn):
     if dev.type == "cpu":
         return cpu_fn
     raise RuntimeError(f"{name}: no implementation for device {dev}")
+
+
+def traced(t: torch.Tensor) -> bool:
+    """Whether ``t`` is seen by a tracer (``torch.export``,
+    ``torch.compile``) rather than computed eagerly."""
+    return torch.compiler.is_compiling() or type(t) is not torch.Tensor
+
+
+def kernel_op(name: str, schema: str, card, plain, fake, eager_card=None):
+    """Register ``stereo_rcnn_tpu_torch::<name>`` (``schema``, no argument
+    mutated): ``card`` on CUDA tensors, ``plain`` on CPU tensors, ``fake``
+    for tracers.  Returns the function callers use, which takes the op's
+    arguments in its order and dispatches by its first tensor (a list's
+    first): traced or under a ``TorchDispatchMode`` (which then sees the
+    call), the registered op; eagerly, ``eager_card`` (``card`` when None)
+    on a card, ``plain`` on the CPU, and any other device raises."""
+    op = torch.library.custom_op(f"stereo_rcnn_tpu_torch::{name}", plain,
+                                 mutates_args=(), device_types="cpu",
+                                 schema=schema)
+    op.register_kernel("cuda")(card)
+    op.register_fake(fake)
+    registered = getattr(torch.ops.stereo_rcnn_tpu_torch, name).default
+    on_card = card if eager_card is None else eager_card
+
+    def call(*args):
+        t = args[0] if isinstance(args[0], torch.Tensor) else args[0][0]
+        if traced(t) or torch._C._len_torch_dispatch_stack():
+            return registered(*args)
+        return on_device(t.device, name, on_card, plain)(*args)
+    return call
 
 
 def check_levels(feats, dev, b: int):

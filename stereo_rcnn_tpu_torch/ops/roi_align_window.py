@@ -85,7 +85,6 @@ class RoIAlignWindowKernel(CudaKernel):
                  sampling_ratio: int = 2) -> torch.Tensor:
         """Batched form: levels ``[B, H_l, W_l, C]``, rois ``[B, R, 4]``
         float32 -> ``[B, R, P, P, C]`` float32."""
-        fn = self.load()
         feats = list(feats)
         dev = rois.device
         p, s = output_size, sampling_ratio
@@ -105,16 +104,13 @@ class RoIAlignWindowKernel(CudaKernel):
         meta, geom = roi_align_window_meta(level_shapes, rois, strides, p)
         out = torch.empty((b, r, p, p, c), dtype=torch.float32, device=dev)
         n = len(feats)
+        ptrs = ctypes.c_void_p * n
         ints = ctypes.c_int * (2 * n)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn((ctypes.c_void_p * n)(*[f.data_ptr() for f in feats]),
-                     ints(*[v for hw in level_shapes for v in hw]),
-                     ints(*[v for hw in _windows(level_shapes) for v in hw]),
-                     n,
-                     meta.data_ptr(), geom.data_ptr(), out.data_ptr(),
-                     b, r, c, p, s, int(dtype == torch.bfloat16), stream)
-        self._launched(err)
+        self.launch(dev, ptrs(*[f.data_ptr() for f in feats]),
+                    ints(*[v for hw in level_shapes for v in hw]),
+                    ints(*[v for hw in _windows(level_shapes) for v in hw]),
+                    n, meta.data_ptr(), geom.data_ptr(), out.data_ptr(),
+                    b, r, c, p, s, int(dtype == torch.bfloat16))
         return out
 
 

@@ -22,8 +22,10 @@ through the f32 bilinear taps into float32 per-level gradients, cast to
 the features' dtype; the rois get no gradient.  K2 sums each gradient
 cell in one fixed order (no atomics), so two launches give the same bits.
 The forward is the registered op ``stereo_rcnn_tpu_torch::
-stereo_roi_align_fwd`` (:func:`stereo_roi_align_fwd`), so that
-``torch.export`` keeps it as one graph node; the op dispatches by device.
+stereo_roi_align_fwd`` (:func:`stereo_roi_align_fwd`, made by
+``ops/cuda_build.kernel_op``), so that ``torch.export`` keeps it as one
+graph node; eager calls skip the op and go to K1 or the plain version by
+device.
 
 K4 ports ``stereo_roi_align_pallas_atlas``: K1's f32 sampling over a
 row-packed level atlas (:func:`pack_atlas`, :func:`atlas_meta`), returning
@@ -43,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from stereo_rcnn_tpu_torch.ops.cuda_build import (CudaKernel, check_levels,
-                                                  on_device)
+                                                  kernel_op, on_device)
 from stereo_rcnn_tpu_torch.ops.roi_align import fpn_level_assignment
 
 # Per-level sampling windows of the TPU kernel (roi_align_pallas.py
@@ -549,7 +551,6 @@ class StereoRoIAlignKernel(CudaKernel):
     def __call__(self, feats_l, feats_r, rois_l, rois_r, strides,
                  hat: str = "f32") -> torch.Tensor:
         mode = TOOL_HAT_MODES[hat]  # KeyError for an unknown mode
-        fn = self.load()
         feats_l, feats_r = list(feats_l), list(feats_r)
         dtype, b, r, c = _check_pyramids(feats_l, feats_r, rois_l, rois_r)
         dev = rois_l.device
@@ -560,17 +561,14 @@ class StereoRoIAlignKernel(CudaKernel):
         out = torch.empty((b, r, ROWS, c), dtype=torch.float32, device=dev)
         ptrs = ctypes.c_void_p * 4
         ints = ctypes.c_int * 8
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(ptrs(*[f.data_ptr() for f in feats_l]),
-                     ptrs(*[f.data_ptr() for f in feats_r]),
-                     ints(*[v for hw in level_shapes for v in hw]),
-                     ints(*[v for hw in window_shapes(level_shapes)
-                            for v in hw]),
-                     meta[0].data_ptr(), geom[0].data_ptr(),
-                     meta[1].data_ptr(), geom[1].data_ptr(), out.data_ptr(),
-                     b, r, c, int(dtype == torch.bfloat16), mode, stream)
-        self._launched(err)
+        self.launch(dev, ptrs(*[f.data_ptr() for f in feats_l]),
+                    ptrs(*[f.data_ptr() for f in feats_r]),
+                    ints(*[v for hw in level_shapes for v in hw]),
+                    ints(*[v for hw in window_shapes(level_shapes)
+                           for v in hw]),
+                    meta[0].data_ptr(), geom[0].data_ptr(),
+                    meta[1].data_ptr(), geom[1].data_ptr(), out.data_ptr(),
+                    b, r, c, int(dtype == torch.bfloat16), mode)
         self.launches_by_hat[hat] += 1
         return out
 
@@ -588,7 +586,6 @@ class StereoRoIAlignBwdKernel(CudaKernel):
         (8-channel lanes where C % 4 == 0, 2-channel lanes for any other
         even C, else 1-channel lanes).  The kernel writes every gradient
         cell once, so they are allocated uninitialised."""
-        fn = self.load()
         level_shapes = [tuple(hw) for hw in level_shapes]
         if len(level_shapes) != 4:
             raise ValueError("the kernel takes exactly 4 levels (P2..P5)")
@@ -613,17 +610,14 @@ class StereoRoIAlignBwdKernel(CudaKernel):
         d_r = [torch.empty_like(d) for d in d_l]
         ptrs = ctypes.c_void_p * 4
         ints = ctypes.c_int * 8
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(ptrs(*[d.data_ptr() for d in d_l]),
-                     ptrs(*[d.data_ptr() for d in d_r]),
-                     ints(*[v for hw in level_shapes for v in hw]),
-                     ints(*[v for hw in window_shapes(level_shapes)
-                            for v in hw]),
-                     meta[0].data_ptr(), geom[0].data_ptr(),
-                     meta[1].data_ptr(), geom[1].data_ptr(),
-                     g_packed.data_ptr(), b, r, c, stream)
-        self._launched(err)
+        self.launch(dev, ptrs(*[d.data_ptr() for d in d_l]),
+                    ptrs(*[d.data_ptr() for d in d_r]),
+                    ints(*[v for hw in level_shapes for v in hw]),
+                    ints(*[v for hw in window_shapes(level_shapes)
+                           for v in hw]),
+                    meta[0].data_ptr(), geom[0].data_ptr(),
+                    meta[1].data_ptr(), geom[1].data_ptr(),
+                    g_packed.data_ptr(), b, r, c)
         return d_l, d_r
 
 
@@ -639,7 +633,6 @@ class StereoRoIAlignAtlasKernel(CudaKernel):
         """``(out7l, out7r, out14l)`` float32 for the atlases of
         :func:`pack_atlas` (``[B, sum H_l + 48, W_max, C]`` per side) of
         levels shaped ``level_shapes``."""
-        fn = self.load()
         dev = rois_l.device
         b, r = rois_l.shape[:2]
         dtype = atlas_l.dtype
@@ -665,14 +658,11 @@ class StereoRoIAlignAtlasKernel(CudaKernel):
                              device=dev)
         out7l = torch.empty((b, r, P, P, c), dtype=torch.float32, device=dev)
         out7r = torch.empty_like(out7l)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(atlas_l.data_ptr(), atlas_r.data_ptr(),
-                     meta[0].data_ptr(), geom[0].data_ptr(),
-                     meta[1].data_ptr(), geom[1].data_ptr(),
-                     out14l.data_ptr(), out7l.data_ptr(), out7r.data_ptr(),
-                     b, r, ah, aw, c, int(dtype == torch.bfloat16), stream)
-        self._launched(err)
+        self.launch(dev, atlas_l.data_ptr(), atlas_r.data_ptr(),
+                    meta[0].data_ptr(), geom[0].data_ptr(),
+                    meta[1].data_ptr(), geom[1].data_ptr(),
+                    out14l.data_ptr(), out7l.data_ptr(), out7r.data_ptr(),
+                    b, r, ah, aw, c, int(dtype == torch.bfloat16))
         return out7l, out7r, out14l
 
 
@@ -681,35 +671,26 @@ stereo_roi_align_bwd_kernel = StereoRoIAlignBwdKernel()
 stereo_roi_align_atlas_kernel = StereoRoIAlignAtlasKernel()
 
 
-# K1's forward as a registered op, so that ``torch.export`` keeps it as one
-# graph node (it cannot trace a ctypes launch on ``data_ptr()``s); at run
-# time the node dispatches by device: CUDA tensors to K1, CPU tensors to
-# the plain version (looked up by name at each call), other devices raise.
-@torch.library.custom_op(
-    "stereo_rcnn_tpu_torch::stereo_roi_align_fwd", mutates_args=(),
-    device_types="cpu",
-    schema="(Tensor[] feats_l, Tensor[] feats_r, Tensor rois_l, "
-           "Tensor rois_r, int[] strides, str hat) -> Tensor")
-def stereo_roi_align_fwd(feats_l, feats_r, rois_l, rois_r, strides, hat):
-    """``[B, R, 294, C]`` float32 for 4 levels a side, ``hat`` one of
-    :data:`TOOL_HAT_MODES`."""
+def _fwd_plain(feats_l, feats_r, rois_l, rois_r, strides, hat):
+    # Looked up by name at each call, so that a wrapper put in its place
+    # (a count of plain calls) sees every call.
     return stereo_roi_align_packed_ref(feats_l, feats_r, rois_l, rois_r,
                                        strides, hat)
 
 
-@stereo_roi_align_fwd.register_kernel("cuda")
-def _stereo_roi_align_fwd_cuda(feats_l, feats_r, rois_l, rois_r, strides,
-                               hat):
-    return stereo_roi_align_kernel(feats_l, feats_r, rois_l, rois_r, strides,
-                                   hat)
-
-
-@stereo_roi_align_fwd.register_fake
-def _stereo_roi_align_fwd_fake(feats_l, feats_r, rois_l, rois_r, strides,
-                               hat):
+def _fwd_fake(feats_l, feats_r, rois_l, rois_r, strides, hat):
     b, r = rois_l.shape[:2]
     return rois_l.new_empty((b, r, ROWS, feats_l[0].shape[-1]),
                             dtype=torch.float32)
+
+
+# K1's forward as a registered op, so that ``torch.export`` keeps it as one
+# graph node (it cannot trace a ctypes launch on ``data_ptr()``s).
+stereo_roi_align_fwd = kernel_op(
+    "stereo_roi_align_fwd",
+    "(Tensor[] feats_l, Tensor[] feats_r, Tensor rois_l, Tensor rois_r, "
+    "int[] strides, str hat) -> Tensor",
+    stereo_roi_align_kernel, _fwd_plain, _fwd_fake)
 
 
 def stereo_roi_align_packed_bwd(g_packed, rois_l, rois_r, level_shapes,
@@ -736,8 +717,8 @@ class _StereoRoIAlign(torch.autograd.Function):
         ctx.strides = strides
         ctx.level_shapes = [(f.shape[1], f.shape[2]) for f in feats_l]
         ctx.dtypes = [f.dtype for f in levels]
-        return torch.ops.stereo_rcnn_tpu_torch.stereo_roi_align_fwd(
-            list(feats_l), list(feats_r), rois_l, rois_r, list(strides), hat)
+        return stereo_roi_align_fwd(list(feats_l), list(feats_r), rois_l,
+                                    rois_r, list(strides), hat)
 
     @staticmethod
     def backward(ctx, g_packed):

@@ -4,14 +4,14 @@ Port of ``stereo_rcnn_tpu.serving``.  :func:`export_pipeline` traces
 ``inference.make_full_pipeline`` (network, NMS, batched 3D solve, dense
 alignment) into one ``torch.export`` program and returns it as bytes; a
 serving process needs only :func:`load_pipeline`, which builds no model:
-the program is the model.  The fused stereo RoIAlign
-and the Gauss-Newton 3D solve are the registered ops
-``stereo_rcnn_tpu_torch::stereo_roi_align_fwd`` and
-``stereo_rcnn_tpu_torch::gauss_newton_solve``, each call kept as one
-graph node that dispatches by device at run time (K1 and K5 on the card,
-their plain versions on the CPU); importing ``ops.stereo_roi_align`` and
-``solve.box_estimator`` registers them, which this module does before
-``torch.export.load``.
+the program is the model.  Each hand-written kernel on the pipeline's
+path is a registered op ``stereo_rcnn_tpu_torch::<name>``
+(``ops/cuda_build.kernel_op``), each call kept as one graph node that
+dispatches by device at run time (the kernel on the card, its plain
+version on the CPU).  The module that defines a kernel registers its op
+when it is imported, and the pipeline imports every one it calls; so this
+module imports the pipeline it serves (``inference``), and every op a
+loaded program calls is registered before ``torch.export.load``.
 
 Differences from the JAX artifact:
 
@@ -43,10 +43,8 @@ import zipfile
 import torch
 
 from stereo_rcnn_tpu_torch.geometry.calib import StereoCalib
-# Register stereo_rcnn_tpu_torch::stereo_roi_align_fwd and ::
-# gauss_newton_solve, which the loaded program calls.
-from stereo_rcnn_tpu_torch.ops import stereo_roi_align  # noqa: F401
-from stereo_rcnn_tpu_torch.solve import box_estimator  # noqa: F401
+from stereo_rcnn_tpu_torch.inference import Detections3D, make_full_pipeline
+from stereo_rcnn_tpu_torch.models.detector import Detections
 
 FORMAT = "stereo_rcnn_tpu_torch.manifest"
 _MANIFEST = "manifest.json"
@@ -58,7 +56,6 @@ class _Served(torch.nn.Module):
 
     def __init__(self, cfg, model):
         super().__init__()
-        from stereo_rcnn_tpu_torch.inference import make_full_pipeline
         self.model = model
         self.pipeline = make_full_pipeline(cfg)
 
@@ -113,8 +110,6 @@ def trace_pipeline(cfg, model, batch: int):
     ``torch.export`` program and its manifest.  Traced under
     ``torch.no_grad()``: the pipeline's own ``no_grad`` decorator would
     otherwise leave a grad-mode node that ``torch.export.load`` refuses."""
-    from stereo_rcnn_tpu_torch.inference import Detections3D
-    from stereo_rcnn_tpu_torch.models.detector import Detections
     h, w = cfg.data.image_h, cfg.data.image_w
     dev = next(model.parameters()).device
     images = torch.zeros((batch, h, w, 3), device=dev)

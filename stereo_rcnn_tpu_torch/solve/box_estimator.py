@@ -11,9 +11,10 @@ min/max derivative is shared among tied corners, as both frameworks'
 JVPs share it).  The 4x4 normal equations are solved by an unrolled
 Cholesky, each step is clipped to ``max_step`` and z is floored at 0.5.
 
-:func:`solve_batch` is the registered op ``stereo_rcnn_tpu_torch::
-gauss_newton_solve`` (one graph node under ``torch.export``), which
-dispatches by device: a CUDA tensor launches K5 (``csrc/box_solve.cu``,
+:func:`solve_batch` calls the registered op ``stereo_rcnn_tpu_torch::
+gauss_newton_solve`` (one graph node under ``torch.export``; made by
+``ops/cuda_build.kernel_op``, whose function calls the op only when
+traced): a CUDA tensor launches K5 (``csrc/box_solve.cu``,
 :data:`gauss_newton_solve_kernel`), the whole solve in one launch, or
 raises; a CPU tensor runs :func:`solve_batch_ref`, the plain loop, which
 the kernel is held to.
@@ -32,7 +33,7 @@ from stereo_rcnn_tpu_torch.geometry.calib import StereoCalib
 from stereo_rcnn_tpu_torch.geometry.projection import (_CORNERS_X,
                                                        _CORNERS_Z,
                                                        box3d_corners, project)
-from stereo_rcnn_tpu_torch.ops.cuda_build import CudaKernel
+from stereo_rcnn_tpu_torch.ops.cuda_build import CudaKernel, kernel_op
 
 
 class SolveResult(NamedTuple):
@@ -213,7 +214,6 @@ class GaussNewtonSolveKernel(CudaKernel):
         contiguous float32 ``obs`` and ``obs_weights`` [N, 7], ``dims_hwl``
         [N, 3], ``alpha``, the five calibration fields and ``fixed_z``
         (or None) [N], and int32 ``kpt_idx`` [N], all on one card."""
-        fn = self.load()
         n = obs.shape[0]
         dev = obs.device
         if iters < 0:
@@ -237,54 +237,43 @@ class GaussNewtonSolveKernel(CudaKernel):
         residual = torch.empty((n,), dtype=torch.float32, device=dev)
         if n == 0:
             return position, theta, residual
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(*[None if t is None else t.data_ptr()
-                       for t in args.values()],
-                     position.data_ptr(), theta.data_ptr(),
-                     residual.data_ptr(), n, iters, damping, stream)
-        self._launched(err)
+        self.launch(dev, *[None if t is None else t.data_ptr()
+                           for t in args.values()],
+                    position.data_ptr(), theta.data_ptr(),
+                    residual.data_ptr(), n, iters, damping)
         return position, theta, residual
 
 
 gauss_newton_solve_kernel = GaussNewtonSolveKernel()
 
 
-# The solve as a registered op, so that ``torch.export`` keeps it as one
-# graph node rather than its loop unrolled; at run time the node
-# dispatches by device: CUDA tensors to K5, CPU tensors to the plain loop
-# (looked up by name at each call), other devices raise.
-@torch.library.custom_op(
-    "stereo_rcnn_tpu_torch::gauss_newton_solve", mutates_args=(),
-    device_types="cpu",
-    schema="(Tensor obs, Tensor obs_weights, Tensor dims_hwl, Tensor alpha, "
-           "Tensor kpt_idx, Tensor f, Tensor cu, Tensor cv, Tensor baseline, "
-           "Tensor tx2, Tensor? fixed_z, int iters, float damping) -> "
-           "(Tensor, Tensor, Tensor)")
-def gauss_newton_solve(obs, obs_weights, dims_hwl, alpha, kpt_idx, f, cu, cv,
-                       baseline, tx2, fixed_z, iters, damping):
-    """``(position [N, 3], theta [N], residual [N])`` of
-    :func:`solve_batch_ref` (copies: an op's outputs may not alias)."""
+def _solve_plain(obs, obs_weights, dims_hwl, alpha, kpt_idx, f, cu, cv,
+                 baseline, tx2, fixed_z, iters, damping):
+    # solve_batch_ref looked up by name at each call, so that a wrapper put
+    # in its place sees every call; copies, as an op's outputs may not
+    # alias its inputs.
     res = solve_batch_ref(obs, dims_hwl, alpha, kpt_idx,
                           StereoCalib(f, cu, cv, baseline, tx2, None, None),
                           obs_weights, iters, damping, fixed_z)
     return res.position.clone(), res.theta.clone(), res.residual
 
 
-@gauss_newton_solve.register_kernel("cuda")
-def _gauss_newton_solve_cuda(obs, obs_weights, dims_hwl, alpha, kpt_idx, f,
-                             cu, cv, baseline, tx2, fixed_z, iters, damping):
-    return gauss_newton_solve_kernel(obs, obs_weights, dims_hwl, alpha,
-                                     kpt_idx, f, cu, cv, baseline, tx2,
-                                     fixed_z, iters, damping)
-
-
-@gauss_newton_solve.register_fake
-def _gauss_newton_solve_fake(obs, obs_weights, dims_hwl, alpha, kpt_idx, f,
-                             cu, cv, baseline, tx2, fixed_z, iters, damping):
+def _solve_fake(obs, obs_weights, dims_hwl, alpha, kpt_idx, f, cu, cv,
+                baseline, tx2, fixed_z, iters, damping):
     n = obs.shape[0]
     return (obs.new_empty((n, 3)), obs.new_empty((n,)),
             obs.new_empty((n,)))
+
+
+# The solve as a registered op, so that ``torch.export`` keeps it as one
+# graph node rather than its loop unrolled.
+gauss_newton_solve = kernel_op(
+    "gauss_newton_solve",
+    "(Tensor obs, Tensor obs_weights, Tensor dims_hwl, Tensor alpha, "
+    "Tensor kpt_idx, Tensor f, Tensor cu, Tensor cv, Tensor baseline, "
+    "Tensor tx2, Tensor? fixed_z, int iters, float damping) -> "
+    "(Tensor, Tensor, Tensor)",
+    gauss_newton_solve_kernel, _solve_plain, _solve_fake)
 
 
 def solve_batch(obs: torch.Tensor, dims_hwl: torch.Tensor,
@@ -308,7 +297,7 @@ def solve_batch(obs: torch.Tensor, dims_hwl: torch.Tensor,
 
     if obs_weights is None:
         obs_weights = torch.ones((nd, 7), device=dev)
-    return SolveResult(*torch.ops.stereo_rcnn_tpu_torch.gauss_newton_solve(
+    return SolveResult(*gauss_newton_solve(
         f32(obs), f32(obs_weights), f32(dims_hwl), f32(alpha),
         kpt_idx.to(dev, torch.int32).contiguous(),
         *[per_det(v) for v in calib[:5]],

@@ -4,7 +4,7 @@ package, on the CPU, in float32.
 A random tiny frozen-BN model of the port, with
 ``tests/test_torch_pipeline.py``'s output scalings (saturated scores,
 O(0.5) box deltas), is written as a ``.pth`` in the released upstream
-names (``chip_smoke.upstream_state_dict``).  ``capture()`` takes it
+names (``convert.stereo_import.upstream_state_dict``).  ``capture()`` takes it
 through the port's JAX-free import; the JAX side takes the same state
 dict through its ``import_detector`` + ``merge_params`` and runs its
 ``make_full_pipeline`` on the same letterboxed pair, in both
@@ -25,7 +25,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import upstream_state_dict
 from stereo_rcnn_tpu import inference as j_inf
 from stereo_rcnn_tpu.config import tiny_test_config as j_tiny
 from stereo_rcnn_tpu.convert.stereo_import import (import_detector,
@@ -33,6 +32,7 @@ from stereo_rcnn_tpu.convert.stereo_import import (import_detector,
 from stereo_rcnn_tpu.models import detector as j_det
 from stereo_rcnn_tpu.utils.host_preproc import resize_subtract_pad
 from stereo_rcnn_tpu_torch.config import tiny_test_config
+from stereo_rcnn_tpu_torch.convert.stereo_import import upstream_state_dict
 from stereo_rcnn_tpu_torch.data.synthetic import (random_scene, render_pair,
                                                   write_kitti_frame)
 from stereo_rcnn_tpu_torch.geometry.calib import default_kitti_calib

@@ -2,21 +2,30 @@
 
 K1 in every sampling-weight mode (the tool-only two-matmul modes too), its
 backward K2 (deterministic: two launches give the same bits), the windowed
-RoIAlign K3 and the atlas variant K4.  K1 and K3 are also checked at C = 36,
-which is not a multiple of 8 and so takes their 2-channel lanes (C = 256
-takes the 8-channel ones), and the two lane widths must give the same bits.
-K2 takes 8-channel lanes where C % 4 == 0 and 2-channel lanes at any other
-even C: it is checked at C = 34 too.  Every kernel takes an odd C through
-1-channel lanes (checked at C = 35, K2 at C = 33), which give the bits of
-the wider lanes; K4 also takes a C beyond one pass of its 256 lanes x 8
-channels (C = 2056).  K5, the Gauss-Newton 3D solve, against the plain
-loop it fuses, at the pipeline's N = 512 and N = 32.  K6, the backbone's
-convolution epilogue, bit for bit against its plain version at the
-ResNet-101 sites' channel counts (16-byte lanes) and at C = 255 (1-channel
-lanes), and its 107 launches a pipeline call of ``res101_kron``.
-Every test here carries the ``cuda`` marker and skips without a CUDA
-device.  The file imports no JAX, so it runs on
-a machine without it:
+RoIAlign K3 and the atlas variant K4, on the inputs of
+``data.synthetic.synthetic_roi_inputs`` (which ``chip_smoke.py``'s kernel
+table times too): rois of realistic sizes plus a zero-area roi, one
+outside the image, one beyond it on every side and two wider than their
+window.  K1 and K3 are also checked at C = 36, which is not a multiple of
+8 and so takes their 2-channel lanes (C = 256 takes the 8-channel ones),
+and the two lane widths must give the same bits.  K2 takes 8-channel
+lanes where C % 4 == 0 and 2-channel lanes at any other even C: it is
+checked at C = 34 too.  Every kernel takes an odd C through 1-channel
+lanes (checked at C = 35 and 255, K2 at C = 33 and 255), which give the
+bits of the wider lanes; K4 also takes a C beyond one pass of its 256
+lanes x 8 channels (C = 2056).  K1 in every mode, K2, K3 and K4 are
+checked at the main paths' shapes too (inference: batch 16, 300 rois;
+training: batch 8, 128 rois), and K1 on a model's own backbone features.
+K5, the Gauss-Newton 3D solve, against the plain loop it fuses, at the
+pipeline's N = 512 and N = 32, with and without edge rows.  K6, the
+backbone's convolution epilogue, bit for bit against its plain version at
+the ResNet-101 sites' channel counts (16-byte lanes), at C = 255
+(1-channel lanes) and at the offline call's site shapes, and its 107
+launches a pipeline call of ``res101_kron``.  The limits live in
+``utils.kernel_checks``, and ``chip_smoke.py``'s kernel table holds the
+kernels to them too.  Every test here carries the ``cuda`` marker and
+skips without a CUDA device.  The file imports no JAX, so it runs on a
+machine without it:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
@@ -24,32 +33,24 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_rcnn_tpu_torch.data.synthetic import synthetic_solve_inputs
+from stereo_rcnn_tpu_torch.data.synthetic import (synthetic_roi_inputs,
+                                                  synthetic_solve_inputs)
 from stereo_rcnn_tpu_torch.geometry.calib import StereoCalib
 from stereo_rcnn_tpu_torch.ops import conv_epilogue as t_epi
 from stereo_rcnn_tpu_torch.ops import stereo_roi_align as t_sra
 from stereo_rcnn_tpu_torch.solve import box_estimator as t_box
+from stereo_rcnn_tpu_torch.utils import kernel_checks as kc
 
 STRIDES = (4, 8, 16, 32)
 
 
-def _k1_inputs(c, b=2, seed=0):
-    """1280x384 level shapes; rois on every level (a P5 roi beyond the
-    image on every side), a zero-area and an out-of-image roi, and two
-    rois wider than their 64-cell window."""
-    rng = np.random.RandomState(seed)
-    shapes = [(384 // s, 1280 // s) for s in STRIDES]
-    fl = [rng.randn(b, h, w, c).astype(np.float32) for h, w in shapes]
-    fr = [rng.randn(b, h, w, c).astype(np.float32) for h, w in shapes]
-    xy = rng.uniform(-20, [1280, 384], size=(300, 2))
-    wh = rng.uniform(1, [400, 200], size=(300, 2))
-    rois = np.concatenate([xy, xy + wh], -1).astype(np.float32)
-    rois[:5] = [[100, 100, 400, 140], [50, 100, 1250, 200],
-                [10, 10, 10, 10], [1400, 500, 1500, 600],
-                [-100, -80, 1400, 500]]
-    rl = np.stack([rois, rois[::-1]])
-    rr = rl - np.float32([17, 0, 14, 0])
-    return fl, fr, rl, rr
+def _inputs(c, dtype=torch.float32, b=2, r=300, seed=0):
+    """:func:`synthetic_roi_inputs` on the card: 1280x384 level shapes;
+    rois on every level (a P5 roi beyond the image on every side), a
+    zero-area and an out-of-image roi, and two rois wider than their
+    64-cell window."""
+    return synthetic_roi_inputs(b, c, r=r, seed=seed, device="cuda",
+                                dtype=dtype)
 
 
 @pytest.mark.cuda
@@ -62,17 +63,13 @@ def test_k1_cuda_kernel_matches_plain(dtype, c):
     fused multiply-adds."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    fl, fr, rl, rr = _k1_inputs(c)
-    dev = torch.device("cuda")
-    tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
-    tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
-    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
+    tl, tr, rl_t, rr_t = _inputs(c, dtype)
     before = t_sra.stereo_roi_align_kernel.launches
     out = t_sra.stereo_roi_align_packed(tl, tr, rl_t, rr_t, STRIDES)
     torch.cuda.synchronize()
     assert t_sra.stereo_roi_align_kernel.launches == before + 1
     ref = t_sra.stereo_roi_align_packed_ref(tl, tr, rl_t, rr_t, STRIDES)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    kc.close_k1(out, ref, "f32")
 
 
 @pytest.mark.cuda
@@ -84,11 +81,7 @@ def test_registered_op_launches_k1(hat):
     the mode's tolerance (1e-4 f32, 1e-5 kron)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    fl, fr, rl, rr = _k1_inputs(256)
-    dev = torch.device("cuda")
-    tl = [torch.from_numpy(f).to(dev, torch.bfloat16) for f in fl]
-    tr = [torch.from_numpy(f).to(dev, torch.bfloat16) for f in fr]
-    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
+    tl, tr, rl_t, rr_t = _inputs(256, torch.bfloat16)
     k1 = t_sra.stereo_roi_align_kernel
     before, by_hat = k1.launches, k1.launches_by_hat[hat]
     out = torch.ops.stereo_rcnn_tpu_torch.stereo_roi_align_fwd(
@@ -99,8 +92,7 @@ def test_registered_op_launches_k1(hat):
     assert out.shape == (2, 300, t_sra.ROWS, 256)
     assert torch.equal(out, k1(tl, tr, rl_t, rr_t, STRIDES, hat))
     ref = t_sra.stereo_roi_align_packed_ref(tl, tr, rl_t, rr_t, STRIDES, hat)
-    torch.testing.assert_close(out, ref, atol=1e-4 if hat == "f32" else 1e-5,
-                               rtol=0)
+    kc.close_k1(out, ref, hat)
 
 
 @pytest.mark.cuda
@@ -115,12 +107,10 @@ def test_k2_cuda_kernel_matches_plain_backward(dtype, c):
     tap by tap."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    fl, fr, rl, rr = _k1_inputs(c)
-    dev = torch.device("cuda")
-    shapes = [f.shape[1:3] for f in fl]
-    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
-    g = torch.randn(rl.shape[0], rl.shape[1], t_sra.ROWS, c, device=dev,
-                    generator=torch.Generator(dev).manual_seed(0))
+    tl, tr, rl_t, rr_t = _inputs(c, dtype)
+    shapes = [f.shape[1:3] for f in tl]
+    g = torch.randn(2, 300, t_sra.ROWS, c, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
     before = t_sra.stereo_roi_align_bwd_kernel.launches
     d_l, d_r = t_sra.stereo_roi_align_bwd_kernel(g, rl_t, rr_t, shapes,
                                                  STRIDES)
@@ -128,15 +118,11 @@ def test_k2_cuda_kernel_matches_plain_backward(dtype, c):
     assert t_sra.stereo_roi_align_bwd_kernel.launches == before + 1
     r_l, r_r = t_sra.stereo_roi_align_packed_bwd_ref(g, rl_t, rr_t, shapes,
                                                      STRIDES)
-    for ours, ref in zip(d_l + d_r, r_l + r_r):
-        scale = ref.abs().max().item()
-        assert scale > 0
-        torch.testing.assert_close(ours, ref, atol=1e-5 * scale, rtol=0)
+    assert all(ref.abs().max().item() > 0 for ref in r_l + r_r)
+    kc.close_per_level(d_l + d_r, r_l + r_r)
 
-    tl = [torch.from_numpy(f).to(dev, dtype).requires_grad_(True)
-          for f in fl]
-    tr = [torch.from_numpy(f).to(dev, dtype).requires_grad_(True)
-          for f in fr]
+    for t in tl + tr:
+        t.requires_grad_(True)
     out = t_sra.stereo_roi_align_packed(tl, tr, rl_t, rr_t, STRIDES)
     out.backward(g)
     torch.cuda.synchronize()
@@ -161,32 +147,13 @@ def test_k1_kron_modes_match_plain(hat, dtype, c):
     differs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    fl, fr, rl, rr = _k1_inputs(c)
-    dev = torch.device("cuda")
-    tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
-    tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
-    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
+    tl, tr, rl_t, rr_t = _inputs(c, dtype)
     before = t_sra.stereo_roi_align_kernel.launches
     out = t_sra.stereo_roi_align_packed(tl, tr, rl_t, rr_t, STRIDES, hat)
     torch.cuda.synchronize()
     assert t_sra.stereo_roi_align_kernel.launches == before + 1
     ref = t_sra.stereo_roi_align_packed_ref(tl, tr, rl_t, rr_t, STRIDES, hat)
-    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
-
-
-def close_two_matmul(out, ref, feats):
-    """K1's two-matmul modes against their plain version: the same rounded
-    hats, but the plain version's y-pass is a cuBLAS product whose float32
-    sums may run in another order; a bf16 intermediate one rounding from a
-    bf16 boundary then moves by a bf16 step, at most 2^-7 of the largest
-    |feature| (the x-hats sum to 1).  So every value within 2^-6 of it, and
-    all but 0.1 % of the 294-row blocks' rows within 1e-5 (0.011 % measured
-    on an H100)."""
-    scale = max(f.abs().max().item() for f in feats)
-    diff = (out - ref).abs()
-    assert diff.max().item() <= 2.0 ** -6 * scale, diff.max().item()
-    off = (diff.amax(-1) > 1e-5).float().mean().item()
-    assert off <= 0.001, f"{off:.3%} of the rows beyond 1e-5"
+    kc.close_k1(out, ref, hat)
 
 
 @pytest.mark.cuda
@@ -199,21 +166,59 @@ def test_k1_two_matmul_modes_match_plain(hat, dtype, c):
     entry refuses the mode."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    fl, fr, rl, rr = _k1_inputs(c)
-    dev = torch.device("cuda")
-    tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
-    tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
-    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
+    tl, tr, rl_t, rr_t = _inputs(c, dtype)
     k1 = t_sra.stereo_roi_align_kernel
     before = k1.launches_by_hat[hat]
     out = k1(tl, tr, rl_t, rr_t, STRIDES, hat)
     torch.cuda.synchronize()
     assert k1.launches_by_hat[hat] == before + 1
     ref = t_sra.stereo_roi_align_packed_ref(tl, tr, rl_t, rr_t, STRIDES, hat)
-    close_two_matmul(out, ref, tl + tr)
+    kc.close_two_matmul(out, ref, tl + tr)
     assert out[0, 2].abs().max().item() == 0.0          # zero-area roi
     with pytest.raises(KeyError):
         t_sra.stereo_roi_align_packed(tl, tr, rl_t, rr_t, STRIDES, hat)
+
+
+@pytest.mark.cuda
+def test_k1_matches_plain_on_backbone_features():
+    """K1 (f32) through ``roi_features`` on a tiny model's own backbone
+    features and proposals at batch 2, against the plain version: within
+    1e-4 of the largest value (the features are not unit scale)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from stereo_rcnn_tpu_torch.config import tiny_test_config
+    from stereo_rcnn_tpu_torch.data.synthetic import synthetic_images
+    from stereo_rcnn_tpu_torch.geometry.anchors import generate_anchors
+    from stereo_rcnn_tpu_torch.models.detector import (init_params,
+                                                       roi_features)
+    from stereo_rcnn_tpu_torch.models.stereo_rpn import select_proposals
+    base = tiny_test_config()
+    cfg = dataclasses.replace(base, rcnn=dataclasses.replace(
+        base.rcnn, roi_align_impl="pallas", roi_align_hat="f32"))
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    il, ir, _ = synthetic_images(cfg, 2, seed=5, n_objects=2)
+    left, right = torch.from_numpy(il).cuda(), torch.from_numpy(ir).cuda()
+    h, w = left.shape[1:3]
+    k1 = t_sra.stereo_roi_align_kernel
+    with torch.no_grad():
+        feats = model.backbone(torch.cat([left, right]))
+        fl, fr = [f[:2] for f in feats], [f[2:] for f in feats]
+        props = select_proposals(
+            *model.rpn(fl, fr),
+            generate_anchors(cfg.anchors, h, w, cfg.box_off, "cuda"), h, w,
+            cfg.rpn, False, cfg.box_off)
+        before = k1.launches
+        ours = roi_features(model, fl, fr, props.left, props.right)
+        torch.cuda.synchronize()
+        assert k1.launches == before + 1
+        plain = t_sra.stereo_roi_align_packed_ref(
+            fl[:4], fr[:4], props.left, props.right, cfg.anchors.strides[:4])
+    assert int(props.valid.sum()) > 0
+    scale = max(plain.abs().max().item(), 1.0)
+    torch.testing.assert_close(ours["left_kpt_rows"].reshape(plain.shape),
+                               plain, atol=1e-4 * scale, rtol=0)
 
 
 @pytest.mark.cuda
@@ -225,13 +230,12 @@ def test_k2_is_deterministic_and_owns_each_cell(c):
     largest |gradient|; with 8- and 2-channel lanes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    _, _, rl, rr = _k1_inputs(256)
+    _, _, rl, _ = _inputs(1)
     dev = torch.device("cuda")
     shapes = [(384 // s, 1280 // s) for s in STRIDES]
-    rl = np.concatenate([rl[:, :128], np.tile(
-        np.float32([[[300, 100, 420, 190]]]), (2, 128, 1))])
-    rr = rl - np.float32([17, 0, 14, 0])
-    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
+    rl_t = torch.cat([rl[:, :128], torch.tensor(
+        [300.0, 100.0, 420.0, 190.0], device=dev).expand(2, 128, 4)])
+    rr_t = rl_t - torch.tensor([17.0, 0.0, 14.0, 0.0], device=dev)
     g = torch.randn(4, 128, t_sra.ROWS, c, device=dev,
                     generator=torch.Generator(dev).manual_seed(1))
     k2 = t_sra.stereo_roi_align_bwd_kernel
@@ -240,11 +244,9 @@ def test_k2_is_deterministic_and_owns_each_cell(c):
     torch.cuda.synchronize()
     ref = t_sra.stereo_roi_align_packed_bwd_ref(g, rl_t, rr_t, shapes,
                                                 STRIDES)
-    for a, b_, r in zip(first[0] + first[1], second[0] + second[1],
-                        ref[0] + ref[1]):
+    for a, b_ in zip(first[0] + first[1], second[0] + second[1]):
         assert torch.equal(a, b_)
-        torch.testing.assert_close(a, r, atol=1e-5 * r.abs().max().item(),
-                                   rtol=0)
+    kc.close_per_level(first, ref)
     # Only the zero-area rois' rows of the cotangent: an exactly zero
     # gradient (the kernel writes every cell, zeros included).
     g0 = torch.zeros_like(g)
@@ -253,28 +255,99 @@ def test_k2_is_deterministic_and_owns_each_cell(c):
     assert not any(d.any() for d in d0_l + d0_r)
 
 
+# The main paths' shapes (batch, rois, C): inference at batch 16 with 300
+# rois, training at batch 8 with 128; and an odd C (1-channel lanes) at
+# the width of the other kernels' narrow-lane checks.
+PATH_SHAPES = [(16, 300, 256, torch.bfloat16), (8, 128, 256, torch.bfloat16),
+               (2, 300, 255, torch.bfloat16), (2, 300, 255, torch.float32)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [256, 36, 35])
+@pytest.mark.parametrize("b, r, c, dtype", PATH_SHAPES)
+@pytest.mark.parametrize("hat", sorted(t_sra.TOOL_HAT_MODES))
+def test_k1_every_mode_at_the_paths_shapes(hat, b, r, c, dtype):
+    """K1 in every mode against its plain version at the main paths'
+    shapes and at C = 255, with the mode's tolerance (1e-4 f32, 1e-5 the
+    kron modes, ``kernel_checks.close_two_matmul`` the two-matmul ones);
+    one launch,
+    counted under its mode; the zero-area roi gives exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tl, tr, rl_t, rr_t = _inputs(c, dtype, b=b, r=r, seed=b + c)
+    k1 = t_sra.stereo_roi_align_kernel
+    before = k1.launches_by_hat[hat]
+    out = k1(tl, tr, rl_t, rr_t, STRIDES, hat)
+    torch.cuda.synchronize()
+    assert k1.launches_by_hat[hat] == before + 1
+    ref = t_sra.stereo_roi_align_packed_ref(tl, tr, rl_t, rr_t, STRIDES, hat)
+    kc.close_k1(out, ref, hat, tl + tr)
+    assert out[:, 2].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 255])
+def test_k2_at_the_training_shapes(c):
+    """K2 at the training step's batch 8 with 128 rois, C = 256 and 255:
+    two launches, both counted, give the same bits, within 1e-5 of each
+    level's largest |gradient| of the plain backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, _, rl_t, rr_t = _inputs(1, b=8, r=128, seed=c)
+    shapes = [(384 // s, 1280 // s) for s in STRIDES]
+    g = torch.randn(8, 128, t_sra.ROWS, c, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(c))
+    k2 = t_sra.stereo_roi_align_bwd_kernel
+    before = k2.launches
+    first = k2(g, rl_t, rr_t, shapes, STRIDES)
+    second = k2(g, rl_t, rr_t, shapes, STRIDES)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 2
+    ref = t_sra.stereo_roi_align_packed_bwd_ref(g, rl_t, rr_t, shapes,
+                                                STRIDES)
+    for a, b_ in zip(first[0] + first[1], second[0] + second[1]):
+        assert torch.equal(a, b_)
+    kc.close_per_level(first, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 36, 35, 255])
 @pytest.mark.parametrize("p, s", [(7, 2), (14, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3_cuda_kernel_matches_plain(p, s, dtype, c):
-    """K3 against its plain version, batched and unbatched, with 8- and
-    2-channel lanes.  1e-4, as K1: the two differ only in fused
-    multiply-adds."""
+    """K3 against its plain version, batched and unbatched, with 8-, 2-
+    and 1-channel lanes (C = 256; 36; 35 and 255).  1e-4, as K1: the two
+    differ only in fused multiply-adds."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    feats, _, rois, _ = _inputs(c, dtype)
+    _check_k3(feats, rois, p, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p, s", [(7, 2), (14, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_at_the_inference_shape(p, s, dtype):
+    """K3 as :func:`test_k3_cuda_kernel_matches_plain` checks it, at
+    batch 16 with 300 rois, C = 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    feats, _, rois, _ = _inputs(256, dtype, b=16, seed=16)
+    _check_k3(feats, rois, p, s)
+
+
+def _check_k3(feats, rois, p, s):
+    """K3 through its entry point, batched and (image 1) unbatched: one
+    launch each, within 1e-4 of its plain version; the zero-area roi is
+    not zeroed (the TPU kernel samples it as a 1-cell roi)."""
     from stereo_rcnn_tpu_torch.ops import roi_align_window as t_win
-    fl, _, rl, _ = _k1_inputs(c)
-    dev = torch.device("cuda")
-    feats = [torch.from_numpy(f).to(dev, dtype) for f in fl]
-    rois = torch.from_numpy(rl).to(dev)
     for f_, r_ in ((feats, rois), ([f[1] for f in feats], rois[1])):
         before = t_win.roi_align_window_kernel.launches
         out = t_win.multilevel_roi_align_window(f_, r_, STRIDES, p, s)
         torch.cuda.synchronize()
         assert t_win.roi_align_window_kernel.launches == before + 1
         ref = t_win.multilevel_roi_align_window_ref(f_, r_, STRIDES, p, s)
-        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+        kc.close_sampled(out, ref)
+        assert out[..., 2, :, :, :].abs().max().item() > 0
 
 
 def _shifted(t):
@@ -296,13 +369,9 @@ def test_lane_width_keeps_the_bits(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from stereo_rcnn_tpu_torch.ops import roi_align_window as t_win
-    fl, fr, rl, rr = _k1_inputs(256)
-    dev = torch.device("cuda")
-    tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
-    tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
+    tl, tr, rl_t, rr_t = _inputs(256, dtype)
     sl, sr = [_shifted(f) for f in tl], [_shifted(f) for f in tr]
     assert all(f.data_ptr() % 16 for f in sl + sr)
-    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
     k1 = t_sra.stereo_roi_align_kernel
     for hat in t_sra.TOOL_HAT_MODES:
         assert torch.equal(k1(tl, tr, rl_t, rr_t, STRIDES, hat),
@@ -322,13 +391,9 @@ def test_odd_c_lanes_keep_the_bits(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from stereo_rcnn_tpu_torch.ops import roi_align_window as t_win
-    fl, fr, rl, rr = _k1_inputs(36)
-    dev = torch.device("cuda")
-    tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
-    tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
+    tl, tr, rl_t, rr_t = _inputs(36, dtype)
     nl = [f[..., :35].contiguous() for f in tl]
     nr = [f[..., :35].contiguous() for f in tr]
-    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
     k1 = t_sra.stereo_roi_align_kernel
     for hat in t_sra.TOOL_HAT_MODES:
         assert torch.equal(k1(tl, tr, rl_t, rr_t, STRIDES, hat)[..., :35],
@@ -352,11 +417,10 @@ def test_k2_lane_width_keeps_the_bits():
     order at every width."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    _, _, rl, rr = _k1_inputs(256)
+    _, _, rl_t, rr_t = _inputs(1)
     dev = torch.device("cuda")
     shapes = [(384 // s, 1280 // s) for s in STRIDES]
-    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
-    g = torch.randn(2, rl.shape[1], t_sra.ROWS, 36, device=dev,
+    g = torch.randn(2, 300, t_sra.ROWS, 36, device=dev,
                     generator=torch.Generator(dev).manual_seed(2))
     k2 = t_sra.stereo_roi_align_bwd_kernel
     wide = k2(g, rl_t, rr_t, shapes, STRIDES)
@@ -367,40 +431,47 @@ def test_k2_lane_width_keeps_the_bits():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [256, 35, 2056])
+@pytest.mark.parametrize("c", [256, 35, 2056, 255])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k4_cuda_kernel_matches_plain(dtype, c):
     """K4 against its plain version, one launch for both images, and
     against K1 f32 on the same inputs, with 8-channel lanes (C = 256),
-    1-channel lanes (C = 35) and two passes of its lanes (C = 2056).
+    1-channel lanes (C = 35, 255) and two passes of its lanes (C = 2056).
     1e-4, as K1: the right pool sums its taps per distinct cell, in
     another float32 order than the mean of four samples; the left side is
     K1's arithmetic.  A zero-area roi writes zeros."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    fl, fr, rl, rr = _k1_inputs(c)
-    dev = torch.device("cuda")
-    tl = [torch.from_numpy(f).to(dev, dtype) for f in fl]
-    tr = [torch.from_numpy(f).to(dev, dtype) for f in fr]
-    rl_t, rr_t = torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev)
+    _check_k4(*_inputs(c, dtype))
+
+
+@pytest.mark.cuda
+def test_k4_at_the_offline_shape():
+    """K4 as :func:`test_k4_cuda_kernel_matches_plain` checks it, at batch
+    16 with 300 rois, C = 256, bfloat16 levels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _check_k4(*_inputs(256, torch.bfloat16, b=16, seed=16))
+
+
+def _check_k4(tl, tr, rl_t, rr_t):
+    c = tl[0].shape[-1]
     before = t_sra.stereo_roi_align_atlas_kernel.launches
     out = t_sra.stereo_roi_align_atlas(tl, tr, rl_t, rr_t, STRIDES)
     torch.cuda.synchronize()
     assert t_sra.stereo_roi_align_atlas_kernel.launches == before + 1
     ref = t_sra.stereo_roi_align_atlas_ref(tl, tr, rl_t, rr_t, STRIDES)
-    for o, r in zip(out, ref):
-        torch.testing.assert_close(o, r, atol=1e-4, rtol=0)
+    kc.close_sampled(out, ref)
     packed = t_sra.stereo_roi_align_kernel(tl, tr, rl_t, rr_t, STRIDES)
     shapes = [(f.shape[1], f.shape[2]) for f in tl]
     atlas_l = t_sra.pack_atlas(tl)[0]
     atlas_r = t_sra.pack_atlas(tr)[0]
     out = t_sra.stereo_roi_align_atlas_kernel(atlas_l, atlas_r, shapes, rl_t,
                                               rr_t, STRIDES)
-    b, r = rl.shape[:2]
+    b, r = rl_t.shape[:2]
     for o, rows in zip(out, (slice(196, 245), slice(245, 294),
                              slice(0, 196))):
-        torch.testing.assert_close(o.reshape(b, r, -1, c),
-                                   packed[:, :, rows], atol=1e-4, rtol=0)
+        kc.close_sampled(o.reshape(b, r, -1, c), packed[:, :, rows])
     assert all(o[0, 2].abs().max().item() == 0.0 for o in out)
 
 
@@ -442,11 +513,34 @@ def test_k5_matches_the_plain_loop(n, iters, fixed):
     torch.cuda.synchronize()
     assert k5.launches == before + 1
     ref = t_box.solve_batch_ref(*args, iters=iters, **kw)
-    for name, a, b in zip(got._fields, got, ref):
-        assert torch.equal(a.isfinite(), b.isfinite()), name
-        torch.testing.assert_close(a[well], b[well], atol=1e-3, rtol=0)
+    kc.close_solve(got, ref, well)
     if fixed:
         assert got.position[1, 2].item() == ref.position[1, 2].item() == 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 32])
+@pytest.mark.parametrize("fixed", [False, True])
+def test_k5_at_the_cars_depth(n, fixed):
+    """K5 against the plain loop on :func:`synthetic_solve_inputs` without
+    edge rows, the re-solve's z fixed at the cars' depth + 0.3 m, at
+    ``Config()``'s 30 iterations: within 1e-3 on the well-posed rows, the
+    same finiteness on every row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d = {k: torch.from_numpy(v).cuda()
+         for k, v in synthetic_solve_inputs(n, seed=n).items()}
+    args = (d["obs"], d["dims_hwl"], d["alpha"], d["kpt_idx"],
+            StereoCalib(*d["calib"].T.contiguous(), None, None))
+    kw = dict(obs_weights=d["obs_weights"],
+              fixed_z=d["depth"] + 0.3 if fixed else None)
+    k5 = t_box.gauss_newton_solve_kernel
+    before = k5.launches
+    got = t_box.solve_batch(*args, **kw)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    ref = t_box.solve_batch_ref(*args, **kw)
+    kc.close_solve(got, ref, d["well_posed"])
 
 
 @pytest.mark.cuda
@@ -505,22 +599,29 @@ def test_k6_matches_plain_bit_for_bit(dtype, relu, residual, c):
     torch.cuda.synchronize()
     assert k6.launches == before + 2
     assert got.data_ptr() == y.data_ptr()
-    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     for out in (op, got):
         assert out.dtype == dtype
         assert out.is_contiguous(memory_format=torch.channels_last)
-        assert torch.equal(out.view(bits), ref.view(bits))
+        kc.same_bits(out, ref)
+
+
+# The offline call's K6 sites (16 stereo pairs at 1280x384): the stem's
+# epilogue takes no residual; each stage's last convolution does, its
+# first two do not; the FPN's laterals take one and no ReLU.
+K6_SITES = [((32, 64, 192, 640), False, True)] + [
+    ((32, c, h, w), residual, True)
+    for c, h, w in ((256, 96, 320), (512, 48, 160), (1024, 24, 80),
+                    (2048, 12, 40)) for residual in (False, True)] + [
+    ((32, 256, 96, 320), True, False)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,residual", [
-    ((32, 64, 192, 640), False), ((32, 256, 96, 320), True),
-    ((32, 1024, 24, 80), False), ((32, 2048, 12, 40), True)])
-def test_k6_matches_plain_at_the_offline_sites(shape, residual):
-    """K6 at the offline call's site shapes (16 stereo pairs at
-    1280x384: the stem, C2, C4, C5), where the grid is capped at a full
-    card and each thread walks many grid strides with its bias in
-    registers: the plain version's bits."""
+@pytest.mark.parametrize("shape,residual,relu", K6_SITES)
+def test_k6_matches_plain_at_the_offline_sites(shape, residual, relu):
+    """K6 at the offline call's site shapes (the stem, C2 to C5, an FPN
+    lateral), where the grid is capped at a full card and each thread
+    walks many grid strides with its bias in registers: the plain
+    version's bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(shape[1])
@@ -532,9 +633,9 @@ def test_k6_matches_plain_at_the_offline_sites(shape, residual):
     y = draw()
     r = draw() if residual else None
     bias = torch.randn(shape[1], generator=gen, device="cuda")
-    ref = t_epi.conv_epilogue_ref(y, bias, r, True)
-    got = t_epi.conv_epilogue(y, bias, r, True)
-    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    ref = t_epi.conv_epilogue_ref(y, bias, r, relu)
+    got = t_epi.conv_epilogue(y, bias, r, relu)
+    kc.same_bits(got, ref)
 
 
 @pytest.mark.cuda

@@ -6,7 +6,9 @@ On the torch twin of the whole detector with the reference's names
 ``tests/test_torch_bridges.py``), the port's ``import_detector`` must give
 exactly ``state_dict_from_jax`` of the JAX ``import_detector``'s tree (the
 same numpy BN fold; every layout change the JAX side makes, ``from_jax``
-undoes), with the same report.  Exact comparisons throughout.
+undoes), with the same report; and the port's ``upstream_state_dict``
+must give back a model's own weights through it.  Exact comparisons
+throughout.
 """
 
 import dataclasses
@@ -19,6 +21,7 @@ from stereo_rcnn_tpu.convert import stereo_import as j_import
 from stereo_rcnn_tpu_torch.config import tiny_test_config
 from stereo_rcnn_tpu_torch.convert import resnet_import, stereo_import
 from stereo_rcnn_tpu_torch.convert.from_jax import state_dict_from_jax
+from stereo_rcnn_tpu_torch.convert.stereo_import import upstream_state_dict
 from stereo_rcnn_tpu_torch.models.detector import StereoRCNN
 from stereo_rcnn_tpu_torch.models.heads import KeypointHead
 
@@ -117,3 +120,28 @@ def test_fc6_of_another_width_is_refused(twin):
     with pytest.raises(ValueError, match="RCNN_fc6"):
         stereo_import.import_detector(sd, depth=DEPTH, pool=7,
                                       fpn_dim=2 * FPN_DIM)
+
+
+def test_upstream_state_dict_round_trips_through_import_detector():
+    """``upstream_state_dict`` of a tiny frozen-BN model, read back by
+    ``import_detector``, gives the model's own ``state_dict``: every tensor
+    exactly, apart from each frozen BN's scale, which the import folds
+    with variance 1 as ``scale / sqrt(1 + BN_EPS)``."""
+    base = tiny_test_config()
+    cfg = dataclasses.replace(
+        base, backbone=dataclasses.replace(base.backbone, norm="frozen"))
+    model = StereoRCNN(cfg)
+    upstream = upstream_state_dict(model)
+    assert not any(k.startswith(("backbone_net.", "rcnn_head.", "kpt_head."))
+                   for k in upstream)
+    ours, report = stereo_import.import_detector(
+        upstream, depth=cfg.backbone.depth, pool=cfg.rcnn.pooling_size,
+        fpn_dim=cfg.backbone.fpn_dim)
+    assert report["unclaimed"] == []
+    state = model.state_dict()
+    assert set(ours) == set(state)
+    for k, v in state.items():
+        want = v.numpy()
+        if k.endswith(".scale"):
+            want = want / np.sqrt(np.ones_like(want) + resnet_import.BN_EPS)
+        assert torch.equal(ours[k], torch.from_numpy(want)), k
