@@ -1,8 +1,9 @@
 """FPN anchor generation (port of ``stereo_rcnn_tpu.geometry.anchors``).
 
-Anchors are built once per image size in numpy and moved to the device;
-the order is level-major, then row-major, then ratio — the flatten order
-of the RPN head outputs.
+Anchors are built in numpy once per anchor config, image size and device,
+moved to the device and kept there (``utils/device_constants.py``); the
+order is level-major, then row-major, then ratio — the flatten order of
+the RPN head outputs.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from stereo_rcnn_tpu_torch.config import AnchorConfig
 from stereo_rcnn_tpu_torch.device import resolve_device
+from stereo_rcnn_tpu_torch.utils.device_constants import constant
 
 
 def base_anchors(scale: float, ratios: Sequence[float],
@@ -40,7 +42,16 @@ def generate_anchors(cfg: AnchorConfig, image_h: int, image_w: int,
                      device: torch.device | str | None = None
                      ) -> torch.Tensor:
     """All anchors over all levels, ``[A_total, 4]`` xyxy float32, on
-    ``device`` (default: the CUDA card)."""
+    ``device`` (default: the CUDA card).  The tensor is shared by every
+    call with the same arguments: callers must not write into it."""
+    return constant("anchors", (cfg, image_h, image_w, float(off)),
+                    lambda: torch.from_numpy(
+                        _anchors(cfg, image_h, image_w, off)),
+                    resolve_device(device))
+
+
+def _anchors(cfg: AnchorConfig, image_h: int, image_w: int,
+             off: float) -> np.ndarray:
     per_level = []
     for stride, scale in zip(cfg.strides, cfg.scales):
         fh, fw = -(-image_h // stride), -(-image_w // stride)
@@ -51,8 +62,7 @@ def generate_anchors(cfg: AnchorConfig, image_h: int, image_w: int,
         shifts = np.stack([cx, cy, cx, cy], axis=-1)               # [fh, fw, 4]
         anchors = shifts[:, :, None, :] + base[None, None, :, :]
         per_level.append(anchors.reshape(-1, 4))
-    return torch.from_numpy(np.concatenate(per_level, axis=0)).to(
-        resolve_device(device))
+    return np.concatenate(per_level, axis=0)
 
 
 def anchors_per_level(cfg: AnchorConfig, image_h: int,

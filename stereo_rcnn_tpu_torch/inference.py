@@ -21,6 +21,8 @@ from stereo_rcnn_tpu_torch.models.detector import Detections, make_inference_fn
 from stereo_rcnn_tpu_torch.solve.box_estimator import (
     observations_from_detection, solve_batch)
 from stereo_rcnn_tpu_torch.solve.dense_align import align_batch
+from stereo_rcnn_tpu_torch.utils.device_constants import (constant,
+                                                          content_key, table)
 from stereo_rcnn_tpu_torch.utils.profiling import span
 
 
@@ -39,9 +41,14 @@ def broadcast_calib(calib: StereoCalib, batch: int,
     """Tile a single working-resolution calib to [B]-leading float32
     tensors on ``device`` (default: the CUDA card)."""
     device = resolve_device(device)
-    return StereoCalib(*[
-        torch.from_numpy(np.asarray(v, np.float32)).to(device).expand(
-            (batch,) + np.shape(v)).contiguous() for v in calib])
+    return StereoCalib(*[_tile(v, batch).to(device) for v in calib])
+
+
+def _tile(v, batch: int) -> torch.Tensor:
+    """``v`` as float32 repeated over a leading axis of ``batch``, in a
+    tensor of its own on the host."""
+    return torch.from_numpy(np.array(v, np.float32)).expand(
+        (batch,) + np.shape(v)).contiguous()
 
 
 def truncation_weights(box_left: torch.Tensor, box_right: torch.Tensor,
@@ -77,8 +84,8 @@ def solve_and_align(det: Detections, images_left: torch.Tensor,
     d = det.valid.shape[1]
     dev = images_left.device
     if content_wh is None:
-        content_wh = torch.tensor([float(im_w), float(im_h)],
-                                  device=dev).expand(b, 2)
+        content_wh = table("content_wh", [float(im_w), float(im_h)],
+                           dev).expand(b, 2)
 
     def flat(x):
         return x.reshape(b * d, *x.shape[2:])
@@ -115,7 +122,8 @@ def make_full_pipeline(cfg: Config, calib: StereoCalib | None = None,
     """The end-to-end pipeline.
 
     With ``calib`` (one working-resolution calibration):
-    ``fn(model, left, right) -> Detections3D``.  Without it:
+    ``fn(model, left, right) -> Detections3D``, its calibration batch kept
+    on the images' device once per batch size.  Without it:
     ``fn(model, left, right, calib_batch, content_wh=None)`` with [B]
     calibration tensors (see :func:`broadcast_calib`).
     """
@@ -132,8 +140,13 @@ def make_full_pipeline(cfg: Config, calib: StereoCalib | None = None,
     if calib is None:
         return fn_calib
 
+    keys = [content_key(v) for v in calib]
+
     def fn(model, images_left, images_right) -> Detections3D:
-        cb = broadcast_calib(calib, images_left.shape[0], images_left.device)
+        b = images_left.shape[0]
+        cb = StereoCalib(*[
+            constant("calib", (key, b), lambda v=v: _tile(v, b),
+                     images_left.device) for v, key in zip(calib, keys)])
         return fn_calib(model, images_left, images_right, cb)
 
     return fn

@@ -40,6 +40,7 @@ from stereo_rcnn_tpu_torch.models.stereo_rpn import (Proposals, StereoRPNHead,
 from stereo_rcnn_tpu_torch.ops.nms import nms_indices, top_k_stable
 from stereo_rcnn_tpu_torch.ops.roi_align import multilevel_roi_align
 from stereo_rcnn_tpu_torch.ops.stereo_roi_align import stereo_roi_align_packed
+from stereo_rcnn_tpu_torch.utils.device_constants import table
 from stereo_rcnn_tpu_torch.utils.profiling import span
 
 
@@ -199,15 +200,14 @@ def postprocess_boxes(raw: dict, cfg: Config, im_h: int, im_w: int):
     props: Proposals = raw["proposals"]
     rcnn: RCNNOutputs = raw["rcnn"]
     dev = props.left.device
-    mean_dims = torch.tensor(rc.mean_dims_hwl, dtype=torch.float32,
-                             device=dev).reshape(-1, 3)
+    mean_dims = table("mean_dims", rc.mean_dims_hwl, dev).reshape(-1, 3)
     if mean_dims.shape[0] not in (1, rc.num_classes - 1):
         raise ValueError(
             f"mean_dims_hwl must be [3] or [(num_classes-1), 3]; got "
             f"{tuple(mean_dims.shape)} for num_classes={rc.num_classes}")
     probs = torch.softmax(rcnn.cls_logits, dim=-1)            # [B, N, K]
     off = cfg.box_off
-    stds = torch.tensor(rc.bbox_target_stds, dtype=torch.float32, device=dev)
+    stds = table("stds", rc.bbox_target_stds, dev)
     b = probs.shape[0]
 
     per_class = []

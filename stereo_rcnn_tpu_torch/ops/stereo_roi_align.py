@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from stereo_rcnn_tpu_torch.ops.cuda_build import (CudaKernel, check_levels,
                                                   kernel_op, on_device)
 from stereo_rcnn_tpu_torch.ops.roi_align import fpn_level_assignment
+from stereo_rcnn_tpu_torch.utils.device_constants import table
 
 # Per-level sampling windows of the TPU kernel (roi_align_pallas.py
 # _STEREO_WIN), clamped to each level; samples are clamped to the window.
@@ -64,20 +65,6 @@ HAT_MODES = {"f32": 0, "kron_bf16": 1, "kron_hilo": 2}
 TOOL_HAT_MODES = {**HAT_MODES, "bf16": 3, "hilo": 4}
 ATLAS_WIN = (48, 64)        # K4's window; its atlas adds ATLAS_WIN[0] rows
 
-_TABLES: dict = {}
-
-
-def device_table(rows, device) -> torch.Tensor:
-    """The float32 table ``rows`` on ``device``, made once per content and
-    device: a host-to-device copy of a Python list waits for the stream, so
-    the wrappers look their small per-level tables up here instead."""
-    key = (tuple(tuple(float(v) for v in row) for row in rows), str(device))
-    table = _TABLES.get(key)
-    if table is None:
-        table = _TABLES[key] = torch.tensor(rows, dtype=torch.float32,
-                                            device=device)
-    return table
-
 
 def window_shapes(level_shapes, windows=STEREO_WIN):
     """Each level's sampling window of ``windows`` clamped to the level."""
@@ -93,11 +80,12 @@ def roi_window_meta(level_shapes, rois: torch.Tensor,
     bins per axis and the per-level ``windows``; window origins are
     8-aligned on the W axis as in the TPU kernel."""
     levels = fpn_level_assignment(rois, len(level_shapes))
-    table = device_table(
+    per_level = table(
+        "level_table",
         [[1.0 / s, h, w, wh, ww] for s, (h, w), (wh, ww)
          in zip(strides, level_shapes, window_shapes(level_shapes, windows))],
         rois.device)[levels]
-    lvl_scale, lvl_h, lvl_w, win_h, win_w = table.unbind(-1)
+    lvl_scale, lvl_h, lvl_w, win_h, win_w = per_level.unbind(-1)
     scaled = rois * lvl_scale[..., None]
     x1, y1 = scaled[..., 0], scaled[..., 1]
     roi_w = torch.clamp(scaled[..., 2] - x1, min=1.0)
@@ -145,7 +133,7 @@ def _taps(meta, geom, win, n: int, s: int = 1):
     ``x_lo``/``x_hi`` and the fractions ``fy``/``fx``; samples are clamped
     to the window."""
     dev = meta.device
-    win_hw = device_table(win, dev)[meta[..., 0].long()]
+    win_hw = table("level_table", win, dev)[meta[..., 0].long()]
     grid = (torch.arange(n, dtype=torch.float32, device=dev) + 0.5) / s
     y_lo, y_hi, fy = _axis_taps(geom[..., 0:1], geom[..., 2:3],
                                meta[..., 1:2].float(), win_hw[..., 0:1] - 1.0,
@@ -253,7 +241,7 @@ def _hat_rows(feats, meta, geom, win, n: int, avg: int):
     dev = meta.device
     f32 = torch.float32
     wh, ww = max(h for h, _ in win), max(w for _, w in win)
-    win_hw = device_table(win, dev)[meta[..., 0].long()]
+    win_hw = table("level_table", win, dev)[meta[..., 0].long()]
     win_h, win_w = win_hw[..., 0:1], win_hw[..., 1:2]            # [B, R, 1]
     cell_h = torch.arange(wh, dtype=f32, device=dev)
     cell_w = torch.arange(ww, dtype=f32, device=dev)
@@ -450,14 +438,15 @@ def atlas_meta(level_shapes, rois: torch.Tensor, strides: Sequence[int]):
     meta, geom = roi_window_meta(level_shapes, rois, strides)
     offsets = [sum(h for h, _ in level_shapes[:i])
                for i in range(len(level_shapes))]
-    table = device_table(
+    per_roi = table(
+        "level_table",
         [[off, wh - 1, ww - 1] for off, (wh, ww)
          in zip(offsets, window_shapes(level_shapes))],
         rois.device)[meta[..., 0].long()]
-    meta_a = torch.stack([meta[..., 1] + table[..., 0].int(), meta[..., 2],
+    meta_a = torch.stack([meta[..., 1] + per_roi[..., 0].int(), meta[..., 2],
                           meta[..., 3], torch.zeros_like(meta[..., 3])],
                          dim=-1)
-    return meta_a.contiguous(), torch.cat([geom, table[..., 1:]],
+    return meta_a.contiguous(), torch.cat([geom, per_roi[..., 1:]],
                                           dim=-1).contiguous()
 
 

@@ -27,6 +27,7 @@ from stereo_rcnn_tpu_torch.geometry.boxes import (encode_stereo_boxes,
                                                   pairwise_iou, union_box)
 from stereo_rcnn_tpu_torch.models.stereo_rpn import take_per_image
 from stereo_rcnn_tpu_torch.ops.nms import top_k_stable
+from stereo_rcnn_tpu_torch.utils.device_constants import table
 
 
 class GroundTruth(NamedTuple):
@@ -254,14 +255,13 @@ def proposal_targets(prop_left: torch.Tensor, prop_right: torch.Tensor,
         return take_per_image(x, g_idx)
 
     cls = torch.where(sel_fg, gt_at(gt.cls), 0).int()
-    stds = torch.tensor(cfg.bbox_target_stds, dtype=torch.float32,
-                        device=rois_l.device)
+    stds = table("stds", cfg.bbox_target_stds, rois_l.device)
     box_targets = encode_stereo_boxes(rois_l, gt_at(gt.left),
                                       gt_at(gt.right), off) / stds
     # Dims are offsets from the per-class mean size; bg rows (cls 0) clamp
     # to class 1's mean and carry no dim loss.
-    mean_dims = torch.tensor(cfg.mean_dims_hwl, dtype=torch.float32,
-                             device=rois_l.device).reshape(-1, 3)
+    mean_dims = table("mean_dims", cfg.mean_dims_hwl,
+                      rois_l.device).reshape(-1, 3)
     dim_targets = gt_at(gt.dims) - mean_dims[
         torch.clamp(cls - 1, 0, mean_dims.shape[0] - 1).long()]
     alpha = gt_at(gt.alpha)

@@ -21,11 +21,14 @@ pipeline's N = 512 and N = 32, with and without edge rows.  K6, the
 backbone's convolution epilogue, bit for bit against its plain version at
 the ResNet-101 sites' channel counts (16-byte lanes), at C = 255
 (1-channel lanes) and at the offline call's site shapes, and its 107
-launches a pipeline call of ``res101_kron``.  The limits live in
-``utils.kernel_checks``, and ``chip_smoke.py``'s kernel table holds the
-kernels to them too.  Every test here carries the ``cuda`` marker and
-skips without a CUDA device.  The file imports no JAX, so it runs on a
-machine without it:
+launches a pipeline call of ``res101_kron``.  A warm pipeline call of
+``res101_kron`` (batch 16 and 1) and a warm training step's loss forward
+of ``res101_gn``'s recipe wait for the card nowhere (their constants come
+from ``utils/device_constants.py``), with the bits of a fresh cache.  The
+limits live in ``utils.kernel_checks``, and ``chip_smoke.py``'s kernel
+table holds the kernels to them too.  Every test here carries the
+``cuda`` marker and skips without a CUDA device.  The file imports no
+JAX, so it runs on a machine without it:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
@@ -39,6 +42,7 @@ from stereo_rcnn_tpu_torch.geometry.calib import StereoCalib
 from stereo_rcnn_tpu_torch.ops import conv_epilogue as t_epi
 from stereo_rcnn_tpu_torch.ops import stereo_roi_align as t_sra
 from stereo_rcnn_tpu_torch.solve import box_estimator as t_box
+from stereo_rcnn_tpu_torch.utils import device_constants as dc
 from stereo_rcnn_tpu_torch.utils import kernel_checks as kc
 
 STRIDES = (4, 8, 16, 32)
@@ -646,18 +650,11 @@ def test_k6_launches_107_per_pipeline_call():
     convolutions; the folded weights are built once over two calls."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    import json
-    import os
-
-    from stereo_rcnn_tpu_torch.config import load_config
     from stereo_rcnn_tpu_torch.data.synthetic import synthetic_images
     from stereo_rcnn_tpu_torch.inference import (broadcast_calib,
                                                  make_full_pipeline)
     from stereo_rcnn_tpu_torch.models.detector import init_params
-    path = os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                        "h100_bench", "configs", "res101_kron.json")
-    with open(path) as f:
-        cfg = load_config(None, overrides=json.load(f)["config"])
+    cfg = _res101_kron()
     model = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
     model.eval()
     il, ir, calib = synthetic_images(cfg, 1, seed=5, n_objects=2)
@@ -671,3 +668,107 @@ def test_k6_launches_107_per_pipeline_call():
         torch.cuda.synchronize()
         assert k6.launches == before + 107
     assert model.backbone_net.fold_builds == 1
+
+
+def _res101_kron():
+    """The benchmark's ``res101_kron`` configuration."""
+    import json
+    import os
+
+    from stereo_rcnn_tpu_torch.config import load_config
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                        "h100_bench", "configs", "res101_kron.json")
+    with open(path) as f:
+        return load_config(None, overrides=json.load(f)["config"])
+
+
+def _without_waits(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: any wait
+    for the card (a copy from pageable host memory, a read of a value)
+    raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _builds(counts):
+    return {k: c.builds for k, c in counts.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [16, 1])
+def test_warm_pipeline_call_does_not_wait_for_the_card(b):
+    """``make_full_pipeline(cfg, calib)`` of ``res101_kron`` at the
+    offline and the stream batch: a first call with an empty constant
+    cache builds the anchors, ``mean_dims``, ``stds``, the content extent,
+    the calibration batch and the level tables; the next call copies
+    nothing from the host, waits for nothing, builds nothing, and gives
+    the first call's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from stereo_rcnn_tpu_torch.data.synthetic import synthetic_images
+    from stereo_rcnn_tpu_torch.inference import make_full_pipeline
+    from stereo_rcnn_tpu_torch.models.detector import init_params
+    cfg = _res101_kron()
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    il, ir, calib = synthetic_images(cfg, b, seed=5, n_objects=2)
+    left, right = torch.from_numpy(il).cuda(), torch.from_numpy(ir).cuda()
+    pipe = make_full_pipeline(cfg, calib)
+    dc.clear()
+    fresh = pipe(model, left, right)
+    built = dc.counts()
+    warm = _without_waits(lambda: pipe(model, left, right))
+    after = dc.counts()
+    assert _builds(after) == _builds(built)
+    hits = {k: after[k].hits - built[k].hits for k in after}
+    assert {k: hits[k] for k in ("anchors", "mean_dims", "stds",
+                                 "content_wh", "calib")} == {
+        "anchors": 1, "mean_dims": 1, "stds": 1, "content_wh": 1,
+        "calib": 7}
+    assert hits["level_table"] > 0
+    kc.same_bits(warm, fresh)
+
+
+@pytest.mark.cuda
+def test_warm_training_losses_do_not_wait_for_the_card():
+    """One training step of ``res101_gn``'s recipe
+    (``synthetic_fullres_config()``) at batch 2, then the loss forward of
+    the next (the backbone, ``train/targets`` with its anchors, ``stds``
+    and ``mean_dims``, the RPN, K1 and the heads): it waits for nothing,
+    builds nothing, and gives the bits of the same forward with a fresh
+    constant cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from stereo_rcnn_tpu_torch.config import synthetic_fullres_config
+    from stereo_rcnn_tpu_torch.data.synthetic import synthetic_batch
+    from stereo_rcnn_tpu_torch.train import (Batch, init_train_state,
+                                             make_train_step)
+    from stereo_rcnn_tpu_torch.train.step import compute_losses
+    from stereo_rcnn_tpu_torch.train.targets import ground_truth_to_torch
+    cfg = synthetic_fullres_config()
+    il, ir, gt, _ = synthetic_batch(cfg, 2, seed=7, n_objects=5)
+    batch = Batch(torch.from_numpy(il).cuda(), torch.from_numpy(ir).cuda(),
+                  ground_truth_to_torch(gt, "cuda"))
+    state = init_train_state(cfg, torch.Generator().manual_seed(0),
+                             device="cuda")
+    make_train_step(cfg, device="cuda")(
+        state, batch, torch.Generator(device="cuda").manual_seed(0))
+
+    def losses():
+        return compute_losses(state.model, batch, cfg, torch.Generator(
+            device="cuda").manual_seed(1))
+
+    built = dc.counts()
+    warm = _without_waits(losses)
+    after = dc.counts()
+    assert _builds(after) == _builds(built)
+    for kind in ("anchors", "mean_dims", "stds"):
+        assert after[kind].hits == built[kind].hits + 1, kind
+    dc.clear()
+    fresh = losses()
+    assert warm.keys() == fresh.keys()
+    kc.same_bits([warm[k] for k in sorted(warm)],
+                 [fresh[k] for k in sorted(fresh)])

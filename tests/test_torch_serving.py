@@ -37,6 +37,7 @@ from stereo_rcnn_tpu_torch.inference import (broadcast_calib,
 from stereo_rcnn_tpu_torch.models.detector import init_params
 from stereo_rcnn_tpu_torch.ops import stereo_roi_align as t_sra
 from stereo_rcnn_tpu_torch.solve import box_estimator as t_box
+from stereo_rcnn_tpu_torch.utils import device_constants
 
 from tests.test_torch_pipeline import (BOX_SCALE, CLS_SCALE, RPN_BOX_SCALE,
                                        RPN_SCALE, _parity_cfg)
@@ -59,10 +60,15 @@ def exported():
     p["rcnn_head"]["bbox_pred"]["kernel"] *= BOX_SCALE
     model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     model.load_state_dict(state_dict_from_jax(params, cfg), strict=True)
+    # The trace meets an empty constant cache: each lookup misses.
+    device_constants.clear()
+    builds = device_constants.counts()
     blob = serving.export_pipeline(cfg, model, BATCH)
+    kept_after_export = list(device_constants._CACHE.values())
     il, ir, calib = synthetic_images(cfg, BATCH, seed=5, n_objects=2)
     return dict(cfg=cfg, cfg_j=cfg_j, params=params, model=model, blob=blob,
-                pipe=serving.load_pipeline(blob), il=il, ir=ir, calib=calib)
+                pipe=serving.load_pipeline(blob), il=il, ir=ir, calib=calib,
+                builds=builds, kept_after_export=kept_after_export)
 
 
 def _run(pipe_or_model, ex):
@@ -91,6 +97,21 @@ def test_round_trip_equals_live_pipeline(exported):
     served = _run(pipe, exported)
     assert live.det.valid.sum() > 0
     _assert_equal(served, live)
+
+
+def test_export_keeps_no_fake_constant(exported):
+    """The trace's misses of the constant cache (anchors, ``mean_dims``,
+    ``stds``) build fake tensors, which the cache hands out but never
+    keeps; eager calls after it build and keep real ones, and give the
+    artifact's outputs."""
+    assert exported["kept_after_export"] == []
+    live = _run(exported["model"], exported)
+    kept = [t for t, _ in device_constants._CACHE.values()]
+    assert kept and all(type(t) is torch.Tensor and t.device.type == "cpu"
+                        for t in kept)
+    assert device_constants.counts()["anchors"].builds > exported[
+        "builds"].get("anchors", (0, 0))[0]
+    _assert_equal(_run(exported["pipe"], exported), live)
 
 
 @pytest.mark.parametrize("op", ["roi_align", "solve"])
