@@ -24,6 +24,8 @@ written out:
   sampling's uniforms for the global batch on every rank.
 - :func:`data_parallel_inference` runs the pipeline on a rank's rows and
   gathers the detections back in row order.
+- :func:`counts` reads the collectives this process has issued, by kind
+  (calls and bytes sent); :func:`clear` zeroes them.
 
 The mean of equal-size local gradients is the global one: the losses are
 means over the batch of per-image losses, and the uncertainty combination
@@ -35,7 +37,9 @@ the float32 sums.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
+from collections import Counter
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -43,9 +47,39 @@ import torch
 import torch.distributed as dist
 
 from stereo_rcnn_tpu_torch.train.losses import LOSS_NAMES
+from stereo_rcnn_tpu_torch.utils.profiling import span
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+
+_CALLS: Counter = Counter()
+_BYTES: Counter = Counter()
+
+
+class Counts(NamedTuple):
+    calls: int      # collectives issued
+    bytes: int      # bytes this rank sent into them (its buffer's size)
+
+
+def _count(kind: str, *tensors: torch.Tensor) -> None:
+    _CALLS[kind] += 1
+    _BYTES[kind] += sum(t.numel() * t.element_size() for t in tensors)
+
+
+def counts() -> Dict[str, Counts]:
+    """Collectives this process has issued since the start or the last
+    :func:`clear`, by kind: ``all_reduce`` (the gradient buffers),
+    ``all_reduce_metrics`` (:func:`mean_metrics`), ``broadcast``
+    (:func:`replicate`, one per tensor), ``all_gather``
+    (:func:`gather_batch`) and ``host_flag`` / ``barrier`` (the host
+    group's)."""
+    return {k: Counts(_CALLS[k], _BYTES[k]) for k in sorted(_CALLS)}
+
+
+def clear() -> None:
+    """Zero :func:`counts`."""
+    _CALLS.clear()
+    _BYTES.clear()
 
 
 @dataclasses.dataclass
@@ -81,11 +115,13 @@ class Mesh:
 
     def barrier(self) -> None:
         """Every rank waits here for all the others (on the host)."""
+        _count("barrier")
         dist.barrier(group=self.host_group)
 
     def any_rank(self, flag: bool) -> bool:
         """Whether ``flag`` is set on some rank (a MAX all-reduce)."""
         t = torch.tensor([int(flag)], dtype=torch.int32)
+        _count("host_flag", t)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.host_group)
         return bool(t.item())
 
@@ -115,7 +151,8 @@ def _rank_device(device, local_rank: int) -> torch.device:
 
 def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
               device: torch.device | str | None = None,
-              backend: Optional[str] = None) -> Mesh:
+              backend: Optional[str] = None,
+              timeout: Optional[datetime.timedelta] = None) -> Mesh:
     """This process's :class:`Mesh` (``stereo_rcnn_tpu.parallel.make_mesh``).
 
     Joins an initialised default group, else forms one: from ``RANK``,
@@ -126,7 +163,10 @@ def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
     before anything is allocated on it.  ``backend``: None is NCCL on a
     card and gloo on the CPU; ``"gloo"`` on a card serves several ranks on
     one card.  ``n_devices``, if given, must be the world size, and
-    ``model_parallel`` must divide it."""
+    ``model_parallel`` must divide it.  ``timeout``: how long a
+    collective of the device groups formed here (the default group and
+    the axes') may wait for a rank (None: ``torch.distributed``'s default
+    for the backend); ``host_group`` keeps gloo's default."""
     joined = dist.is_initialized()
     if joined:
         rank, world = dist.get_rank(), dist.get_world_size()
@@ -151,10 +191,11 @@ def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
             raise ValueError("the NCCL backend needs a CUDA device")
         if "MASTER_ADDR" in os.environ:
             dist.init_process_group(backend, init_method="env://",
-                                    rank=rank, world_size=world)
+                                    rank=rank, world_size=world,
+                                    timeout=timeout)
         elif world == 1:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                    world_size=1)
+                                    world_size=1, timeout=timeout)
         else:
             raise RuntimeError(f"WORLD_SIZE={world} needs MASTER_ADDR and "
                                "MASTER_PORT (as torchrun sets them)")
@@ -162,14 +203,17 @@ def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
     mp = model_parallel
     groups = {}
     for d in range(world // mp):
-        g = dist.new_group([d * mp + m for m in range(mp)])
+        g = dist.new_group([d * mp + m for m in range(mp)], timeout=timeout)
         if d == rank // mp:
             groups[MODEL_AXIS] = g
     for m in range(mp):
-        g = dist.new_group([d * mp + m for d in range(world // mp)])
+        g = dist.new_group([d * mp + m for d in range(world // mp)],
+                           timeout=timeout)
         if m == rank % mp:
             groups[DATA_AXIS] = g
-    host_group = (dist.group.WORLD if backend == "gloo"
+    # The host group keeps gloo's default timeout: its waits are long
+    # (one rank renders, saves or checks while the others wait).
+    host_group = (dist.group.WORLD if backend == "gloo" and timeout is None
                   else dist.new_group(backend="gloo"))
     return Mesh(world_size=world, rank=rank, local_rank=local_rank,
                 device=device, backend=backend, model_parallel=mp,
@@ -244,6 +288,7 @@ def replicate(mesh: Mesh, obj):
         replicate(mesh, list(obj.values()))
         return obj
     for t in _tensors(obj):
+        _count("broadcast", t)
         dist.broadcast(t.detach(), src=0)
     return obj
 
@@ -264,18 +309,27 @@ def all_reduce_gradients(mesh: Mesh, params: Dict[str, torch.Tensor]
     """Replace each gradient by its mean over the data axis: one SUM
     all-reduce of a flat buffer per dtype, divided by the data size.
     Every parameter that requires a gradient takes part (a missing one as
-    zeros), so the buffers line up on every rank."""
+    zeros), so the buffers line up on every rank.  Spans (inside the
+    step's ``train/all_reduce``): ``train/all_reduce/flatten`` (the
+    buffers), ``train/all_reduce/collective`` (the all-reduces alone),
+    ``train/all_reduce/unflatten`` (the division and the copies back)."""
     live = [p for p in params.values() if p.requires_grad]
-    for p in live:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    for flat, ps in _flat_by_dtype([p.grad for p in live]).values():
-        dist.all_reduce(flat, group=mesh.groups[DATA_AXIS])
-        flat.div_(mesh.data_size)
-        at = 0
-        for g in ps:
-            g.copy_(flat[at:at + g.numel()].view_as(g))
-            at += g.numel()
+    with span("train/all_reduce/flatten"):
+        for p in live:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flats = list(_flat_by_dtype([p.grad for p in live]).values())
+    with span("train/all_reduce/collective"):
+        for flat, _ in flats:
+            _count("all_reduce", flat)
+            dist.all_reduce(flat, group=mesh.groups[DATA_AXIS])
+    with span("train/all_reduce/unflatten"):
+        for flat, ps in flats:
+            flat.div_(mesh.data_size)
+            at = 0
+            for g in ps:
+                g.copy_(flat[at:at + g.numel()].view_as(g))
+                at += g.numel()
 
 
 # Metrics that are means over this rank's images; the others (grad_norm
@@ -291,6 +345,7 @@ def mean_metrics(mesh: Mesh, metrics: Dict[str, torch.Tensor]
     of the per-rank ones over the data axis."""
     keys = [k for k in _PER_RANK if k in metrics]
     flat = torch.stack([metrics[k].float() for k in keys])
+    _count("all_reduce_metrics", flat)
     dist.all_reduce(flat, group=mesh.groups[DATA_AXIS])
     flat.div_(mesh.data_size)
     return {**metrics, **dict(zip(keys, flat.unbind()))}
@@ -308,7 +363,8 @@ def data_parallel_train_step(step_fn: Callable, mesh: Mesh) -> Callable:
     rows, so the ranks together draw what one process draws.  The
     gradients are averaged over the data axis before the clip and the
     update, so every rank takes the same step.  With ``reduce_metrics``
-    the metrics are global means (:func:`mean_metrics`), else this rank's.
+    the metrics are global means (:func:`mean_metrics`, in the span
+    ``train/mean_metrics``), else this rank's.
     """
     def dp_step(state, batch, generator=None, uniforms=None,
                 reduce_metrics: bool = True):
@@ -317,7 +373,10 @@ def data_parallel_train_step(step_fn: Callable, mesh: Mesh) -> Callable:
         metrics = step_fn(state, batch, generator, uniforms, rows=rows,
                           reduce_grads=lambda params: all_reduce_gradients(
                               mesh, params))
-        return mean_metrics(mesh, metrics) if reduce_metrics else metrics
+        if not reduce_metrics:
+            return metrics
+        with span("train/mean_metrics"):
+            return mean_metrics(mesh, metrics)
     return dp_step
 
 
@@ -331,6 +390,7 @@ def gather_batch(mesh: Mesh, tree):
     gathered = {}
     for dt, (flat, ts) in _flat_by_dtype(as_sent).items():
         parts = [torch.empty_like(flat) for _ in range(mesh.data_size)]
+        _count("all_gather", flat)
         dist.all_gather(parts, flat, group=mesh.groups[DATA_AXIS])
         at = 0
         for t in ts:

@@ -18,7 +18,9 @@ updated in place.  The step's three parts are spans of
 ``utils.profiling`` (``train/losses``, ``train/backward``,
 ``train/optimizer``); a data-parallel step
 (``parallel.data_parallel_train_step``) adds ``train/all_reduce`` between
-the last two.  Inside ``train/losses``: ``train/backbone``,
+the last two (inside it ``train/all_reduce/flatten``, ``.../collective``
+and ``.../unflatten``) and ``train/mean_metrics`` after them.  Inside
+``train/losses``: ``train/backbone``,
 ``train/targets`` (anchors and their targets), ``train/rpn`` (the head and
 its losses), ``train/targets`` again (proposals and their targets),
 ``train/roi_align`` and ``train/heads`` (the RCNN and keypoint heads and
@@ -198,7 +200,9 @@ def compute_losses(model: StereoRCNN, batch: Batch, cfg: Config,
     that fed :func:`proposal_targets` (``left``, ``right`` [B, N, 4] and
     ``valid`` [B, N], detached) and the per-image foreground counts
     (``num_fg_rpn``, ``num_fg_rcnn`` [B]), so that a check can repeat the
-    step on the same proposals."""
+    step on the same proposals, and what the sampling chose: the sampled
+    anchors (``anchor_weights`` [B, A], 1 where sampled) and RoIs
+    (``rois_left`` [B, S, 4], ``roi_weights`` [B, S])."""
     b, im_h, im_w, _ = batch.images_left.shape
     dev = batch.images_left.device
     gt = batch.gt
@@ -238,7 +242,9 @@ def compute_losses(model: StereoRCNN, batch: Batch, cfg: Config,
     if evidence is not None:
         evidence.update(left=props.left.detach(),
                         right=props.right.detach(), valid=props.valid,
-                        num_fg_rpn=at.num_fg, num_fg_rcnn=rt.num_fg)
+                        num_fg_rpn=at.num_fg, num_fg_rcnn=rt.num_fg,
+                        anchor_weights=at.weights, rois_left=rt.rois_left,
+                        roi_weights=rt.weights)
 
     with span("train/roi_align"):
         pooled = roi_features(model, feats_l, feats_r, rt.rois_left,

@@ -204,7 +204,8 @@ def test_handing_back_the_proposals_changes_no_loss(stepped):
     for k in plain:
         assert plain[k].numpy().tobytes() == handed[k].numpy().tobytes(), k
     assert set(ev) == {"left", "right", "valid", "num_fg_rpn",
-                       "num_fg_rcnn"}
+                       "num_fg_rcnn", "anchor_weights", "rois_left",
+                       "roi_weights"}
     assert ev["left"].shape == (B, cfg.rpn.train_post_nms_top_n, 4)
     assert ev["valid"].dtype == torch.bool and not ev["left"].requires_grad
     assert float(ev["num_fg_rcnn"].float().mean()) == float(
